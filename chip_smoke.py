@@ -1,0 +1,479 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``mbrl_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the three CUDA kernels from ``mbrl_tpu_torch/csrc/``, holds each against
+its plain PyTorch version at the main path's shapes (f32 and bf16) and times
+both, then drives PETS planning through the port's entry points at full width
+(7-member GaussianMLP ensemble, 5 elites, 4x200 silu; CEM pop 400 x 20
+particles x horizon 30, 5 iterations) with random weights from a seed:
+
+  A  the bench shape (learned rewards, rotate, bf16): whole-horizon kernel K1
+  B  the PETS-HalfCheetah config (preprocess, analytic reward, sort, f32): K2
+  C  ModelEnv.step on 8000 particles (TS1): K3
+
+and checks that each config's launches went through its kernel and that the
+rollout on the card agrees with the plain CPU path on an identical-member
+model. Prints the card, a JSON line of per-kernel numbers and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device, and on
+any failed check. Imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+OBS_A, OBS_B, ACT = 17, 18, 6
+POP, PARTICLES, HORIZON = 400, 20, 30
+ENSEMBLE, ELITES, LAYERS, HID = 7, 5, 4, 200
+BATCH = POP * PARTICLES
+# published H100 SXM peaks (dense): FP32 outside the tensor cores, bf16 tensor cores, HBM3
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# elementwise tolerances (|kernel - plain| <= atol + rtol * |plain|):
+# f32 differs only by summation order (FMA chains vs cuBLAS); bf16 rounds at the
+# same points in both, but an f32 ulp can flip one bf16 rounding; K1 compounds
+# both over 30 steps of the obs carry
+TOL = {
+    ("K3", "f32"): 1e-4, ("K2", "f32"): 1e-4, ("K1", "f32"): 1e-3,
+    ("K3", "bf16"): 2e-2, ("K2", "bf16"): 2e-2, ("K1", "bf16"): 5e-2,
+}
+REPLACES = {
+    "K1": "mbrl_tpu/ops/pallas_kernels.py:223 (fused_rollout_returns -> _rollout_kernel :141, pallas_call :299)",
+    "K2": "mbrl_tpu/ops/pallas_kernels.py:381 (fused_ensemble_mlp_gaussian -> _gaussian_kernel :319, pallas_call :440)",
+    "K3": "mbrl_tpu/ops/pallas_kernels.py:51 (fused_ensemble_mlp -> _kernel :34, pallas_call :101)",
+}
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    return out.splitlines()[0]
+
+
+def sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, bf16: bool):
+    t_ops = flops / (PEAK_BF16 if bf16 else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def macs_per_row(dims) -> int:
+    return sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def stack_bytes(stack) -> int:
+    return stack.ws.numel() * stack.ws.element_size() + stack.bs.numel() * 4
+
+
+def elite_stack(in_size: int, out_size: int, dtype, g: torch.Generator):
+    """A 5-elite packed stack from the port's own init."""
+    from mbrl_tpu_torch.models import GaussianMLP
+
+    model = GaussianMLP(in_size, out_size, LAYERS, ENSEMBLE, HID, activation="silu",
+                        compute_dtype=dtype, device="cuda")
+    params = model.set_elite(model.init(g), list(range(ELITES)))
+    p = model._elite_view(params)
+    return model.pack(p), p["max_logvar"].contiguous(), p["min_logvar"].contiguous()
+
+
+def max_err(got: torch.Tensor, ref: torch.Tensor, tol: float):
+    err = (got - ref).abs()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * ref.abs()).all())
+    return float(err.max()), ok
+
+
+# --------------------------------------------------------------------------- #
+# Phase 2: each kernel against its plain version, at main-path shapes
+# --------------------------------------------------------------------------- #
+def kernel_checks():
+    from mbrl_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(SEED)
+    dev = torch.device("cuda")
+    results = {}
+    shard = BATCH // ELITES
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        bf = dtype == torch.bfloat16
+        # K3 / K2 at config B/C shapes: E=5, S=1600, in=24, out=18
+        stack, max_lv, min_lv = elite_stack(OBS_B + ACT, OBS_B, dtype, g)
+        x = torch.randn((ELITES, shard, OBS_B + ACT), generator=g).to(dev)
+        flops = 2.0 * ELITES * shard * macs_per_row(stack.dims)
+
+        got = K.fused_ensemble_mlp(x, stack)
+        ref = K.fused_ensemble_mlp_plain(x, stack)
+        err, ok = max_err(got, ref, TOL[("K3", dt_name)])
+        check(ok, f"K3 {dt_name} disagrees with its plain version: max abs err {err}")
+        nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4
+        bms, bby = bound(flops, nbytes, bf)
+        results[("K3", dt_name)] = {
+            "max_abs_err": err, "tol": TOL[("K3", dt_name)],
+            "ms": time_ms(lambda: K.fused_ensemble_mlp(x, stack), 20),
+            "plain_ms": time_ms(lambda: K.fused_ensemble_mlp_plain(x, stack), 10),
+            "bound_ms": bms, "bound_by": bby,
+        }
+
+        got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False)
+        ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B, sample=False)
+        err, ok = max_err(got, ref, TOL[("K2", dt_name)])
+        check(ok, f"K2 {dt_name} (mean) disagrees with its plain version: max abs err {err}")
+        # sampled path: z = (draw - mean) / sigma must be standard normal
+        raw = K.fused_ensemble_mlp_plain(x, stack)
+        sigma = torch.exp(0.5 * K.bound_logvar(raw[..., OBS_B:], max_lv, min_lv))
+        draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=True)
+        z = ((draws - ref) / sigma).double().flatten()
+        n = z.numel()
+        zm, zv = float(z.mean()), float(z.var())
+        zk = float(((z - zm) ** 4).mean() / zv**2)
+        check(abs(zm) < 5 / n**0.5 and abs(zv - 1) < 5 * (2 / n) ** 0.5 and abs(zk - 3) < 0.1,
+              f"K2 {dt_name} samples are not N(0,1): mean {zm} var {zv} kurtosis {zk}")
+        nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4 + 2 * OBS_B * 4
+        bms, bby = bound(flops, nbytes, bf)
+        results[("K2", dt_name)] = {
+            "max_abs_err": err, "tol": TOL[("K2", dt_name)], "z_mean": zm, "z_var": zv,
+            "z_kurtosis": zk,
+            "ms": time_ms(lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B), 20),
+            "plain_ms": time_ms(
+                lambda: K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B), 10),
+            "bound_ms": bms, "bound_by": bby,
+        }
+
+        # K1 at config A's shape: B=8000, H=30, obs 17, act 6, tile 64
+        stack, max_lv, min_lv = elite_stack(OBS_A + ACT, OBS_A + 1, dtype, g)
+        tile = K.pick_tile(shard)
+        num_tiles = BATCH // tile
+        rot = torch.randint(0, num_tiles, (HORIZON,), generator=g)
+        rot[0] = 0
+        rot = (torch.cumsum(rot, 0) % num_tiles).to(dev, torch.int32)
+        obs0 = (0.1 * torch.randn((OBS_A,), generator=g)).expand(BATCH, OBS_A).contiguous().to(dev)
+        seqs = torch.rand((POP, HORIZON, ACT), generator=g) * 2 - 1
+        acts = seqs.repeat(PARTICLES, 1, 1).contiguous().to(dev)
+        dmask = torch.ones((1, OBS_A), device=dev)
+        args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, OBS_A + 1, tile)
+        got = K.fused_rollout_returns(g, *args, sample=False)
+        ref = K.fused_rollout_returns_plain(g, *args, sample=False)
+        err, ok = max_err(got, ref, TOL[("K1", dt_name)])
+        check(ok, f"K1 {dt_name} (mean path) disagrees with its plain version: max abs err {err}")
+        # sampled path: per-sequence mean returns agree within standard error
+        n_seeds = 8
+
+        def per_seq(fn):
+            runs = torch.stack([fn(g, *args, sample=True).reshape(PARTICLES, POP) for _ in range(n_seeds)])
+            runs = runs.reshape(-1, POP).double()
+            return runs.mean(0), runs.var(0), runs.shape[0]
+
+        mk, vk, nk = per_seq(K.fused_rollout_returns)
+        mp, vp, _ = per_seq(K.fused_rollout_returns_plain)
+        se = torch.sqrt((vk + vp) / nk)
+        z_max = float(((mk - mp).abs() / se).max())
+        var_ratio = float(vk.mean() / vp.mean())
+        check(z_max < 5.0 and 0.8 < var_ratio < 1.25,
+              f"K1 {dt_name} sampled returns differ: max |dmean|/se {z_max}, var ratio {var_ratio}")
+        flops = 2.0 * BATCH * HORIZON * macs_per_row(stack.dims)
+        nbytes = stack_bytes(stack) + (obs0.numel() + acts.numel() + got.numel()) * 4
+        bms, bby = bound(flops, nbytes, bf)
+        results[("K1", dt_name)] = {
+            "max_abs_err": err, "tol": TOL[("K1", dt_name)], "sampled_max_z": z_max,
+            "sampled_var_ratio": var_ratio,
+            "ms": time_ms(lambda: K.fused_rollout_returns(g, *args), 5, warmup=1),
+            "plain_ms": time_ms(lambda: K.fused_rollout_returns_plain(g, *args), 3, warmup=1),
+            "bound_ms": bms, "bound_by": bby,
+        }
+        print(f"kernels {dt_name}: " + json.dumps(
+            {k[0]: results[k] for k in results if k[1] == dt_name}), flush=True)
+    return results
+
+
+def activation_sweep():
+    """K3 and K2 (mean path) for every activation, on a ragged row count
+    (100 rows: one full 64-row tile and one partial), f32 and bf16."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(SEED + 9)
+    dev = torch.device("cuda")
+    dims = (OBS_B + ACT, HID, HID, 2 * OBS_B)
+    ws = [0.1 * torch.randn((ELITES, a, b), generator=g) for a, b in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn((ELITES, 1, b), generator=g) for b in dims[1:]]
+    x = torch.randn((ELITES, 100, dims[0]), generator=g).to(dev)
+    max_lv = torch.full((1, OBS_B), 0.5, device=dev)
+    min_lv = torch.full((1, OBS_B), -10.0, device=dev)
+    errs = {}
+    for act in K.ACTIVATION_CODES:
+        for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            stack = K.pack_mlp([w.to(dev) for w in ws[:-1]], [b.to(dev) for b in bs[:-1]],
+                               ws[-1].to(dev), bs[-1].to(dev), act, dtype=dtype)
+            tol = TOL[("K3", dt_name)]
+            e3, ok3 = max_err(K.fused_ensemble_mlp(x, stack), K.fused_ensemble_mlp_plain(x, stack), tol)
+            e2, ok2 = max_err(
+                K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False),
+                K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B, sample=False),
+                tol)
+            check(ok3 and ok2, f"{act} {dt_name}: kernel vs plain max abs err K3 {e3}, K2 {e2}")
+            errs[f"{act}/{dt_name}"] = max(e3, e2)
+    return errs
+
+
+# --------------------------------------------------------------------------- #
+# Phases 3-5: the main path through the port's entry points
+# --------------------------------------------------------------------------- #
+def build_config(name: str, device: str, g: torch.Generator, identical: bool = False):
+    from mbrl_tpu_torch.envs import reward_fns, termination_fns
+    from mbrl_tpu_torch.envs.pets_halfcheetah import HalfCheetahEnv
+    from mbrl_tpu_torch.models import GaussianMLP, ModelEnv, TransitionRewardModel
+
+    if name == "A":  # bench.py:_build_env: learned rewards, rotate, bf16
+        model = GaussianMLP(OBS_A + ACT, OBS_A + 1, LAYERS, ENSEMBLE, HID, activation="silu",
+                            propagation_method="random_model", rollout_shuffle="rotate",
+                            compute_dtype="bfloat16", device=device)
+        wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
+                                        learned_rewards=True)
+        env_kw = {}
+        obs_dim = OBS_A
+    else:  # overrides/pets_halfcheetah.yaml + gaussian_mlp_ensemble.yaml
+        model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, ENSEMBLE, HID, activation="silu",
+                            propagation_method="random_model", rollout_shuffle="sort",
+                            device=device)
+        wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
+                                        learned_rewards=False,
+                                        obs_process_fn=HalfCheetahEnv.preprocess_fn,
+                                        no_delta_list=[0])
+        env_kw = {"reward_fn": reward_fns.halfcheetah}
+        obs_dim = OBS_B
+    state = wrapper.set_elite(wrapper.init(g), list(range(ELITES)))
+    if identical:
+        # every member carries member 0's weights and the noise is ~e^-10, so
+        # the member schedule cannot matter and any device path must agree
+        params = state["params"]
+        for leaf in [l for layer in params["layers"] for l in layer.values()] + list(params["head"].values()):
+            leaf.copy_(leaf[:1].clone().expand_as(leaf))
+        params["min_logvar"].fill_(-20.0)
+        params["max_logvar"].fill_(-19.0)
+    env = ModelEnv(wrapper, termination_fns.no_termination, **env_kw)
+    return env, state, obs_dim
+
+
+def agreement(name: str, pop: int) -> float:
+    """The card's rollout vs the plain CPU path, same identical-member weights."""
+    vals = {}
+    g_seq = torch.Generator().manual_seed(SEED + 7)
+    for device in ("cuda", "cpu"):
+        env, state, obs_dim = build_config(name, device, torch.Generator().manual_seed(SEED + 3), True)
+        seqs = torch.rand((pop, HORIZON, ACT), generator=torch.Generator().manual_seed(SEED + 4)) * 2 - 1
+        obs0 = 0.1 * torch.randn((obs_dim,), generator=g_seq.manual_seed(SEED + 5))
+        v = env.evaluate_action_sequences(state, seqs, obs0, torch.Generator().manual_seed(1), PARTICLES)
+        vals[device] = v.float().cpu()
+    err = float((vals["cuda"] - vals["cpu"]).abs().max())
+    scale = float(vals["cpu"].abs().max())
+    tol = (2e-2 if name == "A" else 1e-3) * (1.0 + scale)
+    check(np.isfinite(vals["cuda"].numpy()).all() and err <= tol,
+          f"config {name}: card vs CPU returns differ by {err} (tol {tol})")
+    return err
+
+
+def make_agent(name: str, device: str = "cuda"):
+    """The CEM MPC agent of config A or B: 5 iterations, elite ratio 0.16,
+    alpha 0.12, mean of the elites, actions in [-1, 1]."""
+    from mbrl_tpu_torch.planning import (
+        CEMOptimizer, TrajectoryOptimizerAgent, create_trajectory_optim_agent_for_model,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    env, state, obs_dim = build_config(name, device, g)
+    lb, ub = -np.ones(ACT, np.float32), np.ones(ACT, np.float32)
+    cem = CEMOptimizer(5, 0.16, POP, np.tile(lb, (HORIZON, 1)), np.tile(ub, (HORIZON, 1)),
+                       alpha=0.12, return_mean_elites=True, device=device)
+    agent = TrajectoryOptimizerAgent(cem, lb, ub, planning_horizon=HORIZON, replan_freq=1, seed=SEED)
+    agent = create_trajectory_optim_agent_for_model(env, agent, num_particles=PARTICLES)
+    agent.set_eval_state(state)
+    return agent, obs_dim
+
+
+def plan_config(name: str, device: str = "cuda"):
+    agent, obs_dim = make_agent(name, device)
+    lb, ub = -np.ones(ACT, np.float32), np.ones(ACT, np.float32)
+    rng = np.random.default_rng(SEED)
+    times = []
+    for _ in range(3):
+        obs = (0.1 * rng.standard_normal(obs_dim)).astype(np.float32)
+        sync(device)
+        t0 = time.perf_counter()
+        action = agent.act(obs)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(action.shape == (ACT,) and np.isfinite(action).all(), f"config {name}: bad action {action}")
+        check(bool((action >= lb - 1e-6).all() and (action <= ub + 1e-6).all()),
+              f"config {name}: action out of bounds {action}")
+    return times
+
+
+def device_busy(name: str, acts: int = 2):
+    """Warm ``act``s of config A or B under ``torch.profiler``: the share of
+    their wall time in which the card ran anything (union of device
+    intervals), and the share in the port's own kernels. The profiler slows
+    the host, so these wall times are not the ``act`` times above."""
+    from torch.profiler import ProfilerActivity, profile
+
+    agent, obs_dim = make_agent(name)
+    rng = np.random.default_rng(SEED)
+    agent.act((0.1 * rng.standard_normal(obs_dim)).astype(np.float32))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(acts):
+            agent.act((0.1 * rng.standard_normal(obs_dim)).astype(np.float32))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(spans), f"config {name}: the profiler saw no device activity")
+    busy, end = 0.0, -float("inf")
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    ours = sum(e - s for s, e, n in spans
+               if n.split("<")[0].split()[-1] in ("rollout_returns_kernel", "gaussian_kernel",
+                                                  "ensemble_mlp_kernel"))
+    by_name = {}
+    for s, e, n in spans:
+        by_name[n[:48]] = by_name.get(n[:48], 0.0) + (e - s) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"acts": acts, "wall_ms": wall_us / 1e3, "device_busy_share": busy / wall_us,
+            "port_kernel_share": ours / wall_us, "device_ops": len(spans),
+            "top_device_ms": dict(top)}
+
+
+def step_config_c(device: str = "cuda"):
+    g = torch.Generator().manual_seed(SEED + 2)
+    env, state, obs_dim = build_config("B", device, g)
+    obs = 0.1 * torch.randn((BATCH, obs_dim), generator=g)
+    model_state = env.reset(state, obs, g)
+    for _ in range(5):
+        act = torch.rand((BATCH, ACT), generator=g) * 2 - 1
+        next_obs, rewards, term, model_state = env.step(state, act, model_state, g)
+        check(tuple(next_obs.shape) == (BATCH, obs_dim) and tuple(rewards.shape) == (BATCH, 1),
+              f"config C: bad shapes {tuple(next_obs.shape)} {tuple(rewards.shape)}")
+        check(bool(torch.isfinite(next_obs).all() and torch.isfinite(rewards).all()),
+              "config C: non-finite step output")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA device",
+              file=sys.stderr)
+        return 2
+    from mbrl_tpu_torch.ops import build
+    from mbrl_tpu_torch.ops import kernels as K
+
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    cached = build.library_path().exists()
+    build.build(verbose=True)
+    build.load_library()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s ({build.library_path().name}"
+          f"{', already built' if cached else ''})", flush=True)
+
+    results = kernel_checks()
+    print("activations, ragged rows (max abs err): " + json.dumps(activation_sweep()), flush=True)
+
+    agree_a = agreement("A", pop=40)
+    agree_b = agreement("B", pop=40)
+    print(f"agreement card vs cpu (identical members): A {agree_a:.3g}, B {agree_b:.3g}", flush=True)
+
+    # the main path, one config at a time: counts set to 0 just before each
+    # config and read just after it
+    def counted(run):
+        K.reset_launch_counts()
+        out = run()
+        return out, K.launch_counts()
+
+    times_a, counts_a = counted(lambda: plan_config("A"))
+    times_b, counts_b = counted(lambda: plan_config("B"))
+    _, counts_c = counted(step_config_c)
+    print(f"config A act ms: {times_a}  launches {counts_a}", flush=True)
+    print(f"config B act ms: {times_b}  launches {counts_b}", flush=True)
+    print(f"config C launches {counts_c}", flush=True)
+    expected = {
+        "A": (counts_a, {"fused_rollout_returns": 15, "fused_ensemble_mlp_gaussian": 0,
+                         "fused_ensemble_mlp": 0}),  # 5 K1 per plan, 3 plans
+        "B": (counts_b, {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 450,
+                         "fused_ensemble_mlp": 0}),  # 5 x 30 K2 per plan, 3 plans
+        "C": (counts_c, {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0,
+                         "fused_ensemble_mlp": 5}),  # one K3 per step, 5 steps
+    }
+    for name, (got, want) in expected.items():
+        check(got == want, f"config {name}: expected launches {want}, got {got}")
+    profiles = {name: device_busy(name) for name in ("A", "B")}
+    print("device profile: " + json.dumps(profiles), flush=True)
+
+    main_dtype = {"K1": "bf16", "K2": "f32", "K3": "f32"}
+    wrapper_of = {"K1": "fused_rollout_returns", "K2": "fused_ensemble_mlp_gaussian",
+                  "K3": "fused_ensemble_mlp"}
+    path_counts = {"K1": counts_a, "K2": counts_b, "K3": counts_c}
+    line = []
+    for k in ("K1", "K2", "K3"):
+        r = results[(k, main_dtype[k])]
+        other = "f32" if main_dtype[k] == "bf16" else "bf16"
+        line.append({
+            "name": f"{wrapper_of[k]} ({k}, {main_dtype[k]})",
+            "route": "cuda",
+            "source": "mbrl_tpu_torch/csrc/ensemble_mlp.cu",
+            "replaces": REPLACES[k],
+            "tpu_kernel": REPLACES[k],
+            "dtype": main_dtype[k],
+            "launches": path_counts[k][wrapper_of[k]],
+            "max_abs_err": r["max_abs_err"],
+            "max_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "kernel_ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "other_dtype": {"dtype": other, **results[(k, other)]},
+        })
+    print(json.dumps({"act_ms": {"A": times_a, "B": times_b}, "build_s": build_s,
+                      "total_s": time.perf_counter() - t0}), flush=True)
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

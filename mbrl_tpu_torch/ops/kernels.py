@@ -1,0 +1,441 @@
+"""Ensemble-MLP rollout kernels (counterpart of ``mbrl_tpu/ops/pallas_kernels.py``).
+
+Three kernels, hand-written in CUDA for Hopper in ``csrc/ensemble_mlp.cu``, each
+beside a plain PyTorch version of the same function with the same signature:
+
+====  ==========================  ==========================================
+K1    :func:`fused_rollout_returns`       whole H-step rollout, one launch
+K2    :func:`fused_ensemble_mlp_gaussian` one step: chain + bounded Gaussian sample
+K3    :func:`fused_ensemble_mlp`          equal-shard forward, raw head
+====  ==========================  ==========================================
+
+Dispatch depends only on where the tensors live: a CPU tensor goes through the
+plain version; a CUDA tensor launches the kernel or raises (no fallback). Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+The weight stack is packed once per rollout (:func:`pack_mlp`): one (E, n_w)
+tensor holding every product's (d_in, d_out) block row-major, in f32 or bf16,
+and one (E, n_b) f32 tensor of biases. For a bf16 stack the operands of every
+product are rounded to bf16 and accumulated in f32, as the TPU kernels do
+(``pallas_kernels.py:186-195``, :352-353); the plain versions emulate that by
+rounding to bf16 and multiplying in f32, which is exact for bf16 operands.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from mbrl_tpu_torch.device import seed_words
+
+# compile-time activation codes of csrc/ensemble_mlp.cu
+ACTIVATION_CODES: Dict[str, int] = {
+    "relu": 0,
+    "silu": 1,
+    "swish": 1,
+    "tanh": 2,
+    "elu": 3,
+    "gelu": 4,
+    "leaky_relu": 5,
+}
+
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": F.relu,
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "elu": F.elu,
+    # jax.nn.gelu's default is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+}
+
+# limits of the CUDA kernels' register tile and parameter block
+MAX_WIDTH = 256
+MAX_PRODUCTS = 9
+MAX_TILE = 64  # K1: rows of one block
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPStack:
+    """A packed ensemble weight stack: ``dims = (in, hid, ..., hid, head_out)``."""
+
+    ws: torch.Tensor  # (E, n_w) float32 or bfloat16
+    bs: torch.Tensor  # (E, n_b) float32
+    dims: Tuple[int, ...]
+    activation: str
+
+    @property
+    def num_members(self) -> int:
+        return self.ws.shape[0]
+
+    @property
+    def num_products(self) -> int:
+        return len(self.dims) - 1
+
+    @property
+    def low_precision(self) -> bool:
+        return self.ws.dtype == torch.bfloat16
+
+    def product(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Views of product ``i``'s weights (E, d_in, d_out) and bias (E, 1, d_out)."""
+        w0 = sum(a * b for a, b in zip(self.dims[:i], self.dims[1 : i + 1]))
+        b0 = sum(self.dims[1 : i + 1])
+        din, dout = self.dims[i], self.dims[i + 1]
+        e = self.num_members
+        w = self.ws[:, w0 : w0 + din * dout].reshape(e, din, dout)
+        b = self.bs[:, b0 : b0 + dout].reshape(e, 1, dout)
+        return w, b
+
+
+def pack_mlp(
+    layer_ws: Sequence[torch.Tensor],
+    layer_bs: Sequence[torch.Tensor],
+    head_w: torch.Tensor,
+    head_b: torch.Tensor,
+    activation: str,
+    dtype: torch.dtype = torch.float32,
+) -> MLPStack:
+    """Pack per-layer (E, d_in, d_out) weights and (E, 1, d_out) biases."""
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"Unknown activation {activation!r}")
+    ws = list(layer_ws) + [head_w]
+    bs = list(layer_bs) + [head_b]
+    e = head_w.shape[0]
+    dims = tuple([ws[0].shape[1]] + [w.shape[2] for w in ws])
+    packed_w = torch.cat([w.reshape(e, -1).to(dtype) for w in ws], dim=1).contiguous()
+    packed_b = torch.cat([b.reshape(e, -1).float() for b in bs], dim=1).contiguous()
+    return MLPStack(packed_w, packed_b, dims, activation)
+
+
+def supports_fused_mlp(dims: Sequence[int]) -> bool:
+    """Whether the CUDA kernels take this chain (any row count is fine: the
+    kernels mask the ragged last tile)."""
+    return 1 <= len(dims) - 1 <= MAX_PRODUCTS and all(1 <= d <= MAX_WIDTH for d in dims)
+
+
+def pick_tile(rows_per_member: int, max_tile: int = MAX_TILE, min_tile: int = 8) -> Optional[int]:
+    """K1's row tile: the largest divisor of the member shard in
+    ``[min_tile, max_tile]``, so that ``batch % tile == 0`` and
+    ``num_tiles % E == 0``; None if there is none. (The TPU's rule,
+    ``pallas_kernels.pick_tile``, wanted multiples of 8 up to 1024; a GPU block
+    wants at most 64 rows so that B=8000 gives ~one wave of 125 blocks.)"""
+    for t in range(min(rows_per_member, max_tile), min_tile - 1, -1):
+        if rows_per_member % t == 0:
+            return t
+    return None
+
+
+# --------------------------------------------------------------------------- #
+# Plain PyTorch versions
+# --------------------------------------------------------------------------- #
+def _round_operand(h: torch.Tensor, low_precision: bool) -> torch.Tensor:
+    return h.to(torch.bfloat16).float() if low_precision else h
+
+
+def _plain_chain(x: torch.Tensor, stack: MLPStack) -> torch.Tensor:
+    """(E, S, in) f32 → (E, S, head_out) f32 through the member chain."""
+    # plain reference path: full-f32 products, never TF32 (which keeps ~3 digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    act = ACTIVATIONS[stack.activation]
+    h = x.float()
+    last = stack.num_products - 1
+    for i in range(stack.num_products):
+        w, b = stack.product(i)
+        h = torch.bmm(_round_operand(h, stack.low_precision), w.float()) + b
+        if i < last:
+            h = act(h)
+    return h
+
+
+def bound_logvar(
+    logvar: torch.Tensor, max_logvar: torch.Tensor, min_logvar: torch.Tensor
+) -> torch.Tensor:
+    """Soft double-bounding of the raw logvar (reference gaussian_mlp.py:150-154),
+    with JAX's softplus(x) = logaddexp(x, 0)."""
+    zero = torch.zeros((), dtype=logvar.dtype, device=logvar.device)
+    logvar = max_logvar - torch.logaddexp(max_logvar - logvar, zero)
+    return min_logvar + torch.logaddexp(logvar - min_logvar, zero)
+
+
+def _noise_generator(
+    generator: torch.Generator, device: torch.device, sample: bool
+) -> Optional[torch.Generator]:
+    """The plain versions draw their noise from a generator on the tensors'
+    device, seeded with two words drawn from ``generator`` (the two words the
+    kernel's Philox is keyed on; drawn even when not sampling, as the kernel
+    wrappers do, so both consume ``generator`` alike). None when not sampling."""
+    s0, s1 = seed_words(generator, 2)
+    if not sample:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed((s0 << 32) | s1)
+    return g
+
+
+def _bounded_gaussian(
+    out: torch.Tensor,
+    max_logvar: torch.Tensor,
+    min_logvar: torch.Tensor,
+    out_size: int,
+    noise: Optional[torch.Generator],
+) -> torch.Tensor:
+    mean = out[..., :out_size]
+    if noise is None:
+        return mean
+    logvar = bound_logvar(out[..., out_size:], max_logvar.reshape(-1), min_logvar.reshape(-1))
+    z = torch.randn(mean.shape, generator=noise, device=mean.device)
+    return mean + torch.exp(0.5 * logvar) * z
+
+
+def fused_ensemble_mlp_plain(x: torch.Tensor, stack: MLPStack) -> torch.Tensor:
+    return _plain_chain(x, stack)
+
+
+def fused_ensemble_mlp_gaussian_plain(
+    generator: torch.Generator,
+    x: torch.Tensor,
+    stack: MLPStack,
+    max_logvar: torch.Tensor,
+    min_logvar: torch.Tensor,
+    out_size: int,
+    sample: bool = True,
+) -> torch.Tensor:
+    noise = _noise_generator(generator, x.device, sample)
+    return _bounded_gaussian(_plain_chain(x, stack), max_logvar, min_logvar, out_size, noise)
+
+
+def fused_rollout_returns_plain(
+    generator: torch.Generator,
+    rot_tiles: torch.Tensor,
+    obs0_rows: torch.Tensor,
+    acts_rows: torch.Tensor,
+    delta_mask: torch.Tensor,
+    stack: MLPStack,
+    max_logvar: torch.Tensor,
+    min_logvar: torch.Tensor,
+    out_size: int,
+    tile: int,
+    sample: bool = True,
+) -> torch.Tensor:
+    """Same member schedule as the kernel: row tile i uses member
+    ``((i + rot[t]) % num_tiles) // tiles_per_member``. Rolling the batch by
+    ``rot[t] * tile`` rows puts every member's tiles in one contiguous shard,
+    so each step is one equal-shard chain."""
+    batch, obs_dim = obs0_rows.shape
+    horizon = acts_rows.shape[1]
+    e = stack.num_members
+    _check_rollout_shapes(batch, obs_dim, out_size, tile, e)
+    noise = _noise_generator(generator, obs0_rows.device, sample)
+    dmask = delta_mask.reshape(1, obs_dim)
+    obs = obs0_rows.float()
+    total = torch.zeros((batch, 1), dtype=torch.float32, device=obs.device)
+    for t, r in enumerate(rot_tiles.tolist()):
+        x = torch.cat([obs, acts_rows[:, t]], dim=-1)
+        shift = int(r) * tile
+        xs = torch.roll(x, shift, dims=0).reshape(e, batch // e, -1)
+        out = torch.roll(_plain_chain(xs, stack).reshape(batch, -1), -shift, dims=0)
+        pred = _bounded_gaussian(out, max_logvar, min_logvar, out_size, noise)
+        raw_next = pred[:, : out_size - 1]
+        obs = dmask * (obs + raw_next) + (1.0 - dmask) * raw_next
+        total = total + pred[:, out_size - 1 :]
+    return total
+
+
+def _check_rollout_shapes(batch: int, obs_dim: int, out_size: int, tile: int, e: int) -> None:
+    if obs_dim != out_size - 1:
+        raise ValueError(f"obs dim {obs_dim} must be out_size - 1 = {out_size - 1}")
+    if tile < 1 or batch % tile != 0 or (batch // tile) % e != 0:
+        raise ValueError(f"tile {tile} must divide batch {batch} into a multiple of {e} tiles")
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_stack(stack: MLPStack, device: torch.device) -> None:
+    if not supports_fused_mlp(stack.dims):
+        raise ValueError(
+            f"chain dims {stack.dims} exceed the kernel's limits "
+            f"({MAX_PRODUCTS} products, width {MAX_WIDTH})"
+        )
+    if stack.ws.dtype not in (torch.float32, torch.bfloat16) or stack.bs.dtype != torch.float32:
+        raise TypeError(f"weights must be f32/bf16 and biases f32, got {stack.ws.dtype}/{stack.bs.dtype}")
+    _check_cuda(device, ws=stack.ws, bs=stack.bs)
+
+
+def _check_f32(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def _dims_arg(stack: MLPStack):
+    return (ctypes.c_int * len(stack.dims))(*stack.dims)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on_error(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def _dispatch(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def fused_ensemble_mlp(x: torch.Tensor, stack: MLPStack) -> torch.Tensor:
+    """K3: per-member-sharded ensemble forward, raw head. x (E, S, in) → (E, S, head_out)."""
+    if not _dispatch(x):
+        return fused_ensemble_mlp_plain(x, stack)
+    from mbrl_tpu_torch.ops.build import load_library
+
+    e, rows, din = x.shape
+    _check_f32(x=x)
+    _check_cuda(x.device, x=x)
+    _check_stack(stack, x.device)
+    if e != stack.num_members or din != stack.dims[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match stack dims {stack.dims} (E={stack.num_members})")
+    out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
+    lib = load_library()
+    code = lib.mbrl_ensemble_mlp(
+        x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
+        _dims_arg(stack), stack.num_products, e, rows,
+        ACTIVATION_CODES[stack.activation], int(stack.low_precision), _stream(x.device),
+    )
+    _raise_on_error(code, "fused_ensemble_mlp")
+    fused_ensemble_mlp.launches += 1
+    return out
+
+
+def fused_ensemble_mlp_gaussian(
+    generator: torch.Generator,
+    x: torch.Tensor,
+    stack: MLPStack,
+    max_logvar: torch.Tensor,
+    min_logvar: torch.Tensor,
+    out_size: int,
+    sample: bool = True,
+) -> torch.Tensor:
+    """K2: one rollout step, (E, S, in) → (E, S, out_size): a draw from the
+    bounded Gaussian head (two seed words from ``generator`` key the kernel's
+    Philox), or the head's mean when ``sample=False``."""
+    if not _dispatch(x):
+        return fused_ensemble_mlp_gaussian_plain(
+            generator, x, stack, max_logvar, min_logvar, out_size, sample
+        )
+    from mbrl_tpu_torch.ops.build import load_library
+
+    e, rows, din = x.shape
+    _check_f32(x=x, max_logvar=max_logvar, min_logvar=min_logvar)
+    _check_cuda(x.device, x=x, max_logvar=max_logvar, min_logvar=min_logvar)
+    _check_stack(stack, x.device)
+    if e != stack.num_members or din != stack.dims[0] or stack.dims[-1] != 2 * out_size:
+        raise ValueError(f"x {tuple(x.shape)} / out_size {out_size} do not match stack dims {stack.dims}")
+    if max_logvar.numel() != out_size or min_logvar.numel() != out_size:
+        raise ValueError("logvar bounds must have out_size entries")
+    s0, s1 = seed_words(generator, 2)
+    out = torch.empty((e, rows, out_size), dtype=torch.float32, device=x.device)
+    lib = load_library()
+    code = lib.mbrl_ensemble_mlp_gaussian(
+        s0, s1, x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(),
+        max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
+        _dims_arg(stack), stack.num_products, e, rows, out_size, int(sample),
+        ACTIVATION_CODES[stack.activation], int(stack.low_precision), _stream(x.device),
+    )
+    _raise_on_error(code, "fused_ensemble_mlp_gaussian")
+    fused_ensemble_mlp_gaussian.launches += 1
+    return out
+
+
+def fused_rollout_returns(
+    generator: torch.Generator,
+    rot_tiles: torch.Tensor,
+    obs0_rows: torch.Tensor,
+    acts_rows: torch.Tensor,
+    delta_mask: torch.Tensor,
+    stack: MLPStack,
+    max_logvar: torch.Tensor,
+    min_logvar: torch.Tensor,
+    out_size: int,
+    tile: int,
+    sample: bool = True,
+) -> torch.Tensor:
+    """K1: whole-horizon imagined rollout, per-row total learned reward (B, 1).
+
+    rot_tiles (H,) int: cumulative tile-granular rotations; obs0_rows (B, D);
+    acts_rows (B, H, A); delta_mask (1, D), 1 where the target is a delta.
+    Requires D == out_size - 1, tile <= 64 dividing B into a multiple of E tiles.
+    """
+    if not _dispatch(obs0_rows):
+        return fused_rollout_returns_plain(
+            generator, rot_tiles, obs0_rows, acts_rows, delta_mask, stack,
+            max_logvar, min_logvar, out_size, tile, sample,
+        )
+    from mbrl_tpu_torch.ops.build import load_library
+
+    batch, obs_dim = obs0_rows.shape
+    if acts_rows.dim() != 3 or acts_rows.shape[0] != batch:
+        raise ValueError(f"acts_rows must be (B, H, A), got {tuple(acts_rows.shape)}")
+    horizon, act_dim = acts_rows.shape[1:]
+    e = stack.num_members
+    _check_rollout_shapes(batch, obs_dim, out_size, tile, e)
+    if tile > MAX_TILE:
+        raise ValueError(f"tile {tile} exceeds the kernel's {MAX_TILE} rows")
+    if rot_tiles.dtype != torch.int32 or rot_tiles.shape != (horizon,):
+        raise TypeError(f"rot_tiles must be int32 of shape ({horizon},)")
+    if stack.dims[0] != obs_dim + act_dim or stack.dims[-1] != 2 * out_size:
+        raise ValueError(f"stack dims {stack.dims} do not match obs {obs_dim} + act {act_dim} / out {out_size}")
+    if delta_mask.numel() != obs_dim or max_logvar.numel() != out_size or min_logvar.numel() != out_size:
+        raise ValueError("delta_mask / logvar bounds have the wrong size")
+    _check_f32(obs0_rows=obs0_rows, acts_rows=acts_rows, delta_mask=delta_mask,
+               max_logvar=max_logvar, min_logvar=min_logvar)
+    _check_cuda(obs0_rows.device, rot_tiles=rot_tiles, obs0_rows=obs0_rows, acts_rows=acts_rows,
+                delta_mask=delta_mask, max_logvar=max_logvar, min_logvar=min_logvar)
+    _check_stack(stack, obs0_rows.device)
+    s0, s1 = seed_words(generator, 2)
+    out = torch.empty((batch, 1), dtype=torch.float32, device=obs0_rows.device)
+    lib = load_library()
+    code = lib.mbrl_rollout_returns(
+        s0, s1, rot_tiles.data_ptr(), obs0_rows.data_ptr(), acts_rows.data_ptr(),
+        delta_mask.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(),
+        max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
+        _dims_arg(stack), stack.num_products, e, batch, obs_dim, act_dim, horizon,
+        out_size, tile, int(sample), ACTIVATION_CODES[stack.activation],
+        int(stack.low_precision), _stream(obs0_rows.device),
+    )
+    _raise_on_error(code, "fused_rollout_returns")
+    fused_rollout_returns.launches += 1
+    return out
+
+
+KERNEL_WRAPPERS = (fused_rollout_returns, fused_ensemble_mlp_gaussian, fused_ensemble_mlp)
+for _w in KERNEL_WRAPPERS:
+    _w.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
