@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``mbrl_tpu_torch/csrc/``, holds each against
-its plain PyTorch version at the main path's shapes (f32 and bf16) and times
-both, then drives PETS planning through the port's entry points at full width
+Builds the three CUDA kernels from ``mbrl_tpu_torch/csrc/`` (K1 and K2 on the
+tensor cores, ``tc_chain.cu``; K3 on the CUDA cores, ``ensemble_mlp.cu``), holds
+each against its plain PyTorch version at the main path's shapes (f32 and bf16)
+and times both, then drives PETS planning through the port's entry points at full width
 (7-member GaussianMLP ensemble, 5 elites, 4x200 silu; CEM pop 400 x 20
 particles x horizon 30, 5 iterations) with random weights from a seed:
 
@@ -21,6 +22,7 @@ any failed check. Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -34,12 +36,14 @@ OBS_A, OBS_B, ACT = 17, 18, 6
 POP, PARTICLES, HORIZON = 400, 20, 30
 ENSEMBLE, ELITES, LAYERS, HID = 7, 5, 4, 200
 BATCH = POP * PARTICLES
-# published H100 SXM peaks (dense): FP32 outside the tensor cores, bf16 tensor cores, HBM3
-PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# published H100 SXM peaks (dense): TF32 and bf16 tensor cores, HBM3
+PEAK_TF32, PEAK_BF16, PEAK_BYTES = 495e12, 989e12, 3.35e12
 # elementwise tolerances (|kernel - plain| <= atol + rtol * |plain|):
-# f32 differs only by summation order (FMA chains vs cuBLAS); bf16 rounds at the
-# same points in both, but an f32 ulp can flip one bf16 rounding; K1 compounds
-# both over 30 steps of the obs carry
+# f32 differs by summation order and, in K1/K2, by 3xTF32 products (the
+# dropped lo*lo term and the tf32 rounding of lo, ~2^-22 relative) and the
+# approximate silu (~2^-22); bf16 rounds at the same points in both, but an f32
+# ulp can flip one bf16 rounding; K1 compounds both over 30 steps of the obs
+# carry
 TOL = {
     ("K3", "f32"): 1e-4, ("K2", "f32"): 1e-4, ("K1", "f32"): 1e-3,
     ("K3", "bf16"): 2e-2, ("K2", "bf16"): 2e-2, ("K1", "bf16"): 5e-2,
@@ -86,8 +90,33 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, iters: int) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed between two CUDA events, so the wrappers' host time is left out
+    (``time_ms`` keeps it in)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(flops: float, nbytes: float, bf16: bool):
-    t_ops = flops / (PEAK_BF16 if bf16 else PEAK_FP32)
+    """Least time on this card: bf16 products at the bf16 tensor peak; f32-grade
+    products as 3xTF32, three tf32 products each, at the TF32 tensor peak."""
+    t_ops = flops / PEAK_BF16 if bf16 else 3 * flops / PEAK_TF32
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -142,19 +171,23 @@ def kernel_checks():
         bms, bby = bound(flops, nbytes, bf)
         results[("K3", dt_name)] = {
             "max_abs_err": err, "tol": TOL[("K3", dt_name)],
-            "ms": time_ms(lambda: K.fused_ensemble_mlp(x, stack), 20),
+            "ms": time_graph_ms(lambda: K.fused_ensemble_mlp(x, stack), 20),
+            "eager_ms": time_ms(lambda: K.fused_ensemble_mlp(x, stack), 20),
             "plain_ms": time_ms(lambda: K.fused_ensemble_mlp_plain(x, stack), 10),
             "bound_ms": bms, "bound_by": bby,
         }
 
-        got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False)
+        tiles = K.pack_chain(stack)  # K1/K2's layout, packed once as the rollout does
+        got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False,
+                                            tiles=tiles)
         ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B, sample=False)
         err, ok = max_err(got, ref, TOL[("K2", dt_name)])
         check(ok, f"K2 {dt_name} (mean) disagrees with its plain version: max abs err {err}")
         # sampled path: z = (draw - mean) / sigma must be standard normal
         raw = K.fused_ensemble_mlp_plain(x, stack)
         sigma = torch.exp(0.5 * K.bound_logvar(raw[..., OBS_B:], max_lv, min_lv))
-        draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=True)
+        draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=True,
+                                              tiles=tiles)
         z = ((draws - ref) / sigma).double().flatten()
         n = z.numel()
         zm, zv = float(z.mean()), float(z.var())
@@ -166,7 +199,10 @@ def kernel_checks():
         results[("K2", dt_name)] = {
             "max_abs_err": err, "tol": TOL[("K2", dt_name)], "z_mean": zm, "z_var": zv,
             "z_kurtosis": zk,
-            "ms": time_ms(lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B), 20),
+            "ms": time_graph_ms(
+                lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, tiles=tiles), 20),
+            "eager_ms": time_ms(
+                lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, tiles=tiles), 20),
             "plain_ms": time_ms(
                 lambda: K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B), 10),
             "bound_ms": bms, "bound_by": bby,
@@ -184,7 +220,8 @@ def kernel_checks():
         acts = seqs.repeat(PARTICLES, 1, 1).contiguous().to(dev)
         dmask = torch.ones((1, OBS_A), device=dev)
         args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, OBS_A + 1, tile)
-        got = K.fused_rollout_returns(g, *args, sample=False)
+        tiles = K.pack_chain(stack)
+        got = K.fused_rollout_returns(g, *args, sample=False, tiles=tiles)
         ref = K.fused_rollout_returns_plain(g, *args, sample=False)
         err, ok = max_err(got, ref, TOL[("K1", dt_name)])
         check(ok, f"K1 {dt_name} (mean path) disagrees with its plain version: max abs err {err}")
@@ -196,7 +233,7 @@ def kernel_checks():
             runs = runs.reshape(-1, POP).double()
             return runs.mean(0), runs.var(0), runs.shape[0]
 
-        mk, vk, nk = per_seq(K.fused_rollout_returns)
+        mk, vk, nk = per_seq(functools.partial(K.fused_rollout_returns, tiles=tiles))
         mp, vp, _ = per_seq(K.fused_rollout_returns_plain)
         se = torch.sqrt((vk + vp) / nk)
         z_max = float(((mk - mp).abs() / se).max())
@@ -209,7 +246,8 @@ def kernel_checks():
         results[("K1", dt_name)] = {
             "max_abs_err": err, "tol": TOL[("K1", dt_name)], "sampled_max_z": z_max,
             "sampled_var_ratio": var_ratio,
-            "ms": time_ms(lambda: K.fused_rollout_returns(g, *args), 5, warmup=1),
+            "ms": time_graph_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5),
+            "eager_ms": time_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5, warmup=1),
             "plain_ms": time_ms(lambda: K.fused_rollout_returns_plain(g, *args), 3, warmup=1),
             "bound_ms": bms, "bound_by": bby,
         }
@@ -365,7 +403,7 @@ def device_busy(name: str, acts: int = 2):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     ours = sum(e - s for s, e, n in spans
-               if n.split("<")[0].split()[-1] in ("rollout_returns_kernel", "gaussian_kernel",
+               if n.split("<")[0].split()[-1] in ("rollout_returns_tc_kernel", "gaussian_tc_kernel",
                                                   "ensemble_mlp_kernel"))
     by_name = {}
     for s, e, n in spans:
@@ -444,6 +482,8 @@ def main() -> int:
     wrapper_of = {"K1": "fused_rollout_returns", "K2": "fused_ensemble_mlp_gaussian",
                   "K3": "fused_ensemble_mlp"}
     path_counts = {"K1": counts_a, "K2": counts_b, "K3": counts_c}
+    source = {"K1": "mbrl_tpu_torch/csrc/tc_chain.cu", "K2": "mbrl_tpu_torch/csrc/tc_chain.cu",
+              "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
     line = []
     for k in ("K1", "K2", "K3"):
         r = results[(k, main_dtype[k])]
@@ -451,7 +491,7 @@ def main() -> int:
         line.append({
             "name": f"{wrapper_of[k]} ({k}, {main_dtype[k]})",
             "route": "cuda",
-            "source": "mbrl_tpu_torch/csrc/ensemble_mlp.cu",
+            "source": source[k],
             "replaces": REPLACES[k],
             "tpu_kernel": REPLACES[k],
             "dtype": main_dtype[k],
@@ -460,6 +500,7 @@ def main() -> int:
             "max_err": r["max_abs_err"],
             "ms": r["ms"],
             "kernel_ms": r["ms"],
+            "eager_ms": r["eager_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

@@ -97,6 +97,8 @@ def evaluate_action_sequences_sharded(
         layer_ws, layer_bs, p["head"]["w"], p["head"]["b"], model.activation_name,
         dtype=model.compute_dtype,
     )
+    # K1/K2's own layout of the same stack, packed once per rollout for the card
+    tiles = kernels.pack_chain(stack) if dev.type == "cuda" and stochastic else None
     max_lv = p["max_logvar"].float().contiguous() if stochastic else None
     min_lv = p["min_logvar"].float().contiguous() if stochastic else None
 
@@ -130,7 +132,7 @@ def evaluate_action_sequences_sharded(
             dmask[0, dim] = 0.0
         totals_rows = kernels.fused_rollout_returns(
             generator, rot, obs0_rows, acts_rows, dmask, stack, max_lv, min_lv,
-            out_size, tile,
+            out_size, tile, tiles=tiles,
         )
         # particle p of sequence s is row p * population + s
         return totals_rows.reshape(num_particles, population).mean(dim=0)
@@ -175,7 +177,7 @@ def evaluate_action_sequences_sharded(
         x = torch.cat([x_obs, act_t], dim=-1).reshape(num_used, shard, -1).contiguous()
         if stochastic:
             pred = kernels.fused_ensemble_mlp_gaussian(
-                generator, x, stack, max_lv, min_lv, out_size
+                generator, x, stack, max_lv, min_lv, out_size, tiles=tiles
             )
         else:
             pred = kernels.fused_ensemble_mlp(x, stack)

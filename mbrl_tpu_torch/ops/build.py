@@ -1,9 +1,11 @@
-"""Builds ``csrc/ensemble_mlp.cu`` with ``nvcc`` at first use and loads it with ctypes.
+"""Builds the kernels of ``csrc/`` with ``nvcc`` at first use and loads them with ctypes.
 
-The shared library goes to ``mbrl_tpu_torch/_build/`` (git-ignored), named by
-a hash of the source, so an edited source is rebuilt and an unchanged one is
-reused. Nothing is built when the module is imported: only
-:func:`load_library` builds, and only the CUDA kernel wrappers call it.
+Every ``csrc/*.cu`` is compiled to an object by its own ``nvcc``, all at once,
+and the objects are linked into one shared library in ``mbrl_tpu_torch/_build/``
+(git-ignored), named by a hash of every source and header (``*.cu``, ``*.cuh``),
+so an edited file is rebuilt and an unchanged tree is reused. Nothing is built
+when the module is imported: only :func:`load_library` builds, and only the
+CUDA kernel wrappers call it.
 """
 from __future__ import annotations
 
@@ -18,17 +20,26 @@ import sys
 import tempfile
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ensemble_mlp.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 )
+
+
+# Extra nvcc flags for every source, part of the library's hash; the timeline
+# tool (ops/chain_timeline.py) sets ("-DTC_TIMELINE",) before the first load.
+EXTRA_FLAGS: tuple = ()
+
+
+def sources() -> list:
+    """The kernel sources to compile, in a fixed order."""
+    return sorted(CSRC.glob("*.cu"))
 
 
 def find_nvcc() -> str:
@@ -44,33 +55,50 @@ def find_nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libensemble_mlp_{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + EXTRA_FLAGS).encode())
+    for f in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"libensemble_mlp_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    logs = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        logs.append(out)
+    return "".join(logs)
 
 
 def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the source if its library is not built yet; return its path."""
+    """Compile the sources if their library is not built yet; return its path."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = find_nvcc()
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    flags = [*NVCC_FLAGS, *EXTRA_FLAGS, *(["-Xptxas=-v"] if verbose else [])]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
+        objs, procs = [], []
+        for src in sources():  # one nvcc per source, all started together
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *flags, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+            objs.append(obj)
+        log = _run(procs)
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))])
         if verbose:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
+            print(log, file=sys.stderr)
         os.replace(tmp, lib)  # atomic: a reader never sees a half-written library
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -78,16 +106,16 @@ def build(verbose: bool = False) -> pathlib.Path:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with every signature declared."""
     lib = ctypes.CDLL(str(build()))
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
     dims = ctypes.POINTER(ctypes.c_int)
     lib.mbrl_ensemble_mlp.argtypes = [p, p, p, p, dims, i, i, i, i, i, p]
     lib.mbrl_ensemble_mlp.restype = i
     lib.mbrl_ensemble_mlp_gaussian.argtypes = [
-        u, u, p, p, p, p, p, p, dims, i, i, i, i, i, i, i, p
+        u, u, p, p, p, p, p, p, dims, i, i, i, i, i, i, i, ll, p
     ]
     lib.mbrl_ensemble_mlp_gaussian.restype = i
     lib.mbrl_rollout_returns.argtypes = [
-        u, u, p, p, p, p, p, p, p, p, p, dims, i, i, i, i, i, i, i, i, i, i, i, p
+        u, u, p, p, p, p, p, p, p, p, p, dims, i, i, i, i, i, i, i, i, i, i, i, ll, p
     ]
     lib.mbrl_rollout_returns.restype = i
     return lib

@@ -1,7 +1,9 @@
 """Ensemble-MLP rollout kernels (counterpart of ``mbrl_tpu/ops/pallas_kernels.py``).
 
-Three kernels, hand-written in CUDA for Hopper in ``csrc/ensemble_mlp.cu``, each
-beside a plain PyTorch version of the same function with the same signature:
+Three kernels, hand-written in CUDA for Hopper, each beside a plain PyTorch
+version of the same function with the same signature. K1 and K2 run their
+products on the tensor cores (``wgmma``, ``csrc/tc_chain.cu``); K3 runs FMA
+chains on the CUDA cores (``csrc/ensemble_mlp.cu``):
 
 ====  ==========================  ==========================================
 K1    :func:`fused_rollout_returns`       whole H-step rollout, one launch
@@ -19,11 +21,17 @@ and one (E, n_b) f32 tensor of biases. For a bf16 stack the operands of every
 product are rounded to bf16 and accumulated in f32, as the TPU kernels do
 (``pallas_kernels.py:186-195``, :352-353); the plain versions emulate that by
 rounding to bf16 and multiplying in f32, which is exact for bf16 operands.
+
+K1 and K2 read their weights in another layout, packed once per rollout by
+:func:`pack_chain` (:class:`ChainLayout`): chunks already in ``wgmma``'s
+shared-memory layout, bf16, or for an f32 stack two tf32 copies (hi, lo) for
+3xTF32 products that keep f32-grade results.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -57,6 +65,11 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 MAX_WIDTH = 256
 MAX_PRODUCTS = 9
 MAX_TILE = 64  # K1: rows of one block
+# K1/K2 (csrc/tc_chain.cu): widest layer, stages of the weight ring, and the
+# shared memory a block can use
+TC_MAX_WIDTH = 240
+TC_MAX_STAGES = 4
+TC_SMEM_BYTES = 232_448
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +122,133 @@ def pack_mlp(
     packed_w = torch.cat([w.reshape(e, -1).to(dtype) for w in ws], dim=1).contiguous()
     packed_b = torch.cat([b.reshape(e, -1).float() for b in bs], dim=1).contiguous()
     return MLPStack(packed_w, packed_b, dims, activation)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainLayout:
+    """Where K1/K2 find a member's weights (mirrors ``make_chain_desc`` in
+    ``csrc/tc_chain.cu``).
+
+    Product i is a zero-padded (k_pad[i], n_pad[i]) matrix: K padded to the
+    instruction depth (16 bf16, 8 tf32), N to the next layer's K, the head's N
+    to a multiple of 8. It is cut into chunks of ``chunk`` K rows (the last
+    may be shorter), each landed by one bulk copy. A chunk holds ``copies``
+    blocks (bf16: the weights; f32: tf32 hi, then lo), each K-major in
+    ``wgmma``'s unswizzled layout of 8-row x 16-byte core matrices: element
+    (k, n) of a block sits at ``((k // t * n/8 + n // 8) * 8 + n % 8) * t + k % t``
+    with t elements per 16 bytes, so K-adjacent core matrices are n/8 * 128
+    bytes apart and N-adjacent ones 128.
+    """
+
+    dims: Tuple[int, ...]
+    low_precision: bool
+
+    @functools.cached_property
+    def esize(self) -> int:
+        return 2 if self.low_precision else 4
+
+    @functools.cached_property
+    def t(self) -> int:  # elements per 16 bytes
+        return 16 // self.esize
+
+    @functools.cached_property
+    def copies(self) -> int:
+        return 1 if self.low_precision else 2
+
+    @functools.cached_property
+    def chunk(self) -> int:
+        return 64 if self.low_precision else 16
+
+    @functools.cached_property
+    def k_pad(self) -> Tuple[int, ...]:
+        step = 16 if self.low_precision else 8
+        return tuple(_round_up(d, step) for d in self.dims[:-1])
+
+    @functools.cached_property
+    def n_pad(self) -> Tuple[int, ...]:
+        return self.k_pad[1:] + (_round_up(self.dims[-1], 8),)
+
+    def product_offset(self, i: int) -> int:
+        """Element offset of product i in a member's tiles."""
+        return sum(k * n * self.copies for k, n in zip(self.k_pad[:i], self.n_pad[:i]))
+
+    @functools.cached_property
+    def member_elems(self) -> int:
+        return self.product_offset(len(self.dims) - 1)
+
+    @functools.lru_cache(maxsize=None)
+    def stages(self, extra_bytes: int = 0) -> int:
+        """Chunk buffers that fit in shared memory beside the activation tile
+        (hi and lo copies, also holding the head output) and ``extra_bytes``."""
+        rows = MAX_TILE
+        a = max(self.copies * rows * max(self.k_pad) * self.esize, rows * self.n_pad[-1] * 4)
+        stage = max(min(self.chunk, k) * n * self.esize * self.copies
+                    for k, n in zip(self.k_pad, self.n_pad))
+        # barriers (128 bytes) and the logvar bounds (1 KB) besides
+        free = TC_SMEM_BYTES - 128 - 1024 - _round_up(a, 128) - extra_bytes
+        return min(TC_MAX_STAGES, free // stage)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTiles:
+    """A weight stack packed for K1/K2: ``w`` is (E, layout.member_elems),
+    bf16, or f32 holding tf32 values."""
+
+    w: torch.Tensor
+    layout: ChainLayout
+
+
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32 (10 mantissa bits), to nearest with ties away from
+    zero as ``cvt.rna.tf32.f32`` does, on the bits; the 13 low bits come out 0."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _core_blocks(w: torch.Tensor, t: int) -> torch.Tensor:
+    """(E, kc, n) → (E, kc * n) in the core-matrix order of :class:`ChainLayout`."""
+    e, kc, n = w.shape
+    return w.reshape(e, kc // t, t, n // 8, 8).permute(0, 1, 3, 4, 2).reshape(e, -1)
+
+
+def pack_chain(stack: MLPStack) -> ChainTiles:
+    """Pack ``stack`` into K1/K2's layout (:class:`ChainLayout`); once per rollout."""
+    lay = ChainLayout(stack.dims, stack.low_precision)
+    parts = []
+    for i in range(stack.num_products):
+        w, _ = stack.product(i)
+        kp, np_ = lay.k_pad[i], lay.n_pad[i]
+        w = F.pad(w, (0, np_ - w.shape[2], 0, kp - w.shape[1]))
+        if lay.low_precision:
+            copies = [w]
+        else:
+            hi = rna_tf32(w)
+            copies = [hi, rna_tf32(w - hi)]
+        for k0 in range(0, kp, lay.chunk):
+            parts += [_core_blocks(c[:, k0 : k0 + lay.chunk], lay.t) for c in copies]
+    return ChainTiles(torch.cat(parts, dim=1).contiguous(), lay)
+
+
+def unpack_chain(tiles: ChainTiles, i: int) -> Tuple[torch.Tensor, ...]:
+    """Product i's padded (E, k_pad, n_pad) weights back out of the tiles: one
+    tensor for bf16, (hi, lo) for f32."""
+    lay = tiles.layout
+    e = tiles.w.shape[0]
+    kp, np_, t = lay.k_pad[i], lay.n_pad[i], lay.t
+    off = lay.product_offset(i)
+    blocks = [[] for _ in range(lay.copies)]
+    for k0 in range(0, kp, lay.chunk):
+        kc = min(lay.chunk, kp - k0)
+        for c in range(lay.copies):
+            n = kc * np_
+            blk = tiles.w[:, off : off + n].reshape(e, kc // t, np_ // 8, 8, t)
+            blocks[c].append(blk.permute(0, 1, 4, 2, 3).reshape(e, kc, np_))
+            off += n
+    return tuple(torch.cat(b, dim=1) for b in blocks)
 
 
 def supports_fused_mlp(dims: Sequence[int]) -> bool:
@@ -274,6 +414,27 @@ def _check_stack(stack: MLPStack, device: torch.device) -> None:
     _check_cuda(device, ws=stack.ws, bs=stack.bs)
 
 
+def _check_tiles(
+    stack: MLPStack, tiles: Optional[ChainTiles], device: torch.device, extra_bytes: int = 0
+) -> ChainTiles:
+    """K1/K2's checks of the stack and its packed tiles (packed here if None)."""
+    _check_stack(stack, device)
+    if max(stack.dims) > TC_MAX_WIDTH:
+        raise ValueError(f"chain dims {stack.dims} exceed the tensor-core kernels' width {TC_MAX_WIDTH}")
+    if tiles is None:
+        tiles = pack_chain(stack)
+    lay = tiles.layout
+    if (lay.dims != stack.dims or lay.low_precision != stack.low_precision
+            or tiles.w.shape != (stack.num_members, lay.member_elems)):
+        raise ValueError(f"tiles {lay} {tuple(tiles.w.shape)} do not match the stack {stack.dims}")
+    if tiles.w.dtype != stack.ws.dtype:
+        raise TypeError(f"tiles are {tiles.w.dtype}, the stack {stack.ws.dtype}")
+    if lay.stages(extra_bytes) < 2:
+        raise ValueError(f"chain dims {stack.dims} leave no room for two weight chunks in shared memory")
+    _check_cuda(device, tiles=tiles.w)
+    return tiles
+
+
 def _check_f32(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.dtype != torch.float32:
@@ -334,10 +495,12 @@ def fused_ensemble_mlp_gaussian(
     min_logvar: torch.Tensor,
     out_size: int,
     sample: bool = True,
+    tiles: Optional[ChainTiles] = None,
 ) -> torch.Tensor:
     """K2: one rollout step, (E, S, in) → (E, S, out_size): a draw from the
     bounded Gaussian head (two seed words from ``generator`` key the kernel's
-    Philox), or the head's mean when ``sample=False``."""
+    Philox), or the head's mean when ``sample=False``. ``tiles`` is
+    ``pack_chain(stack)``, packed here when not given (pack once per rollout)."""
     if not _dispatch(x):
         return fused_ensemble_mlp_gaussian_plain(
             generator, x, stack, max_logvar, min_logvar, out_size, sample
@@ -347,7 +510,7 @@ def fused_ensemble_mlp_gaussian(
     e, rows, din = x.shape
     _check_f32(x=x, max_logvar=max_logvar, min_logvar=min_logvar)
     _check_cuda(x.device, x=x, max_logvar=max_logvar, min_logvar=min_logvar)
-    _check_stack(stack, x.device)
+    tiles = _check_tiles(stack, tiles, x.device)
     if e != stack.num_members or din != stack.dims[0] or stack.dims[-1] != 2 * out_size:
         raise ValueError(f"x {tuple(x.shape)} / out_size {out_size} do not match stack dims {stack.dims}")
     if max_logvar.numel() != out_size or min_logvar.numel() != out_size:
@@ -356,10 +519,11 @@ def fused_ensemble_mlp_gaussian(
     out = torch.empty((e, rows, out_size), dtype=torch.float32, device=x.device)
     lib = load_library()
     code = lib.mbrl_ensemble_mlp_gaussian(
-        s0, s1, x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(),
+        s0, s1, x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
         max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
         _dims_arg(stack), stack.num_products, e, rows, out_size, int(sample),
-        ACTIVATION_CODES[stack.activation], int(stack.low_precision), _stream(x.device),
+        ACTIVATION_CODES[stack.activation], int(stack.low_precision),
+        tiles.layout.member_elems, _stream(x.device),
     )
     _raise_on_error(code, "fused_ensemble_mlp_gaussian")
     fused_ensemble_mlp_gaussian.launches += 1
@@ -378,12 +542,14 @@ def fused_rollout_returns(
     out_size: int,
     tile: int,
     sample: bool = True,
+    tiles: Optional[ChainTiles] = None,
 ) -> torch.Tensor:
     """K1: whole-horizon imagined rollout, per-row total learned reward (B, 1).
 
     rot_tiles (H,) int: cumulative tile-granular rotations; obs0_rows (B, D);
     acts_rows (B, H, A); delta_mask (1, D), 1 where the target is a delta.
     Requires D == out_size - 1, tile <= 64 dividing B into a multiple of E tiles.
+    ``tiles`` is ``pack_chain(stack)``, packed here when not given.
     """
     if not _dispatch(obs0_rows):
         return fused_rollout_returns_plain(
@@ -410,17 +576,17 @@ def fused_rollout_returns(
                max_logvar=max_logvar, min_logvar=min_logvar)
     _check_cuda(obs0_rows.device, rot_tiles=rot_tiles, obs0_rows=obs0_rows, acts_rows=acts_rows,
                 delta_mask=delta_mask, max_logvar=max_logvar, min_logvar=min_logvar)
-    _check_stack(stack, obs0_rows.device)
+    tiles = _check_tiles(stack, tiles, obs0_rows.device, extra_bytes=4 * MAX_TILE * (obs_dim + 1))
     s0, s1 = seed_words(generator, 2)
     out = torch.empty((batch, 1), dtype=torch.float32, device=obs0_rows.device)
     lib = load_library()
     code = lib.mbrl_rollout_returns(
         s0, s1, rot_tiles.data_ptr(), obs0_rows.data_ptr(), acts_rows.data_ptr(),
-        delta_mask.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(),
+        delta_mask.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
         max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
         _dims_arg(stack), stack.num_products, e, batch, obs_dim, act_dim, horizon,
         out_size, tile, int(sample), ACTIVATION_CODES[stack.activation],
-        int(stack.low_precision), _stream(obs0_rows.device),
+        int(stack.low_precision), tiles.layout.member_elems, _stream(obs0_rows.device),
     )
     _raise_on_error(code, "fused_rollout_returns")
     fused_rollout_returns.launches += 1
