@@ -3,18 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``mbrl_tpu_torch/csrc/`` (K1 and K2 on the
-tensor cores, ``tc_chain.cu``; K3 on the CUDA cores, ``ensemble_mlp.cu``), holds
-each against its plain PyTorch version at the main path's shapes (f32 and bf16)
-and times both, then drives PETS planning through the port's entry points at full width
-(7-member GaussianMLP ensemble, 5 elites, 4x200 silu; CEM pop 400 x 20
-particles x horizon 30, 5 iterations) with random weights from a seed:
+Builds the three CUDA kernels from ``mbrl_tpu_torch/csrc/`` (all on the tensor
+cores: K1 and K2 in ``tc_chain.cu``, K3 in ``ensemble_mlp.cu``, one nvcc each),
+holds each against its plain PyTorch version at the main path's shapes (f32 and
+bf16; K3 at 8,000 rows with a Gaussian and with a deterministic head, and at
+100,000 rows) and times both, then drives the port's
+entry points at full width (7-member GaussianMLP ensemble, 5 elites, 4x200
+silu; CEM pop 400 x 20 particles x horizon 30, 5 iterations) with random
+weights from a seed:
 
   A  the bench shape (learned rewards, rotate, bf16): whole-horizon kernel K1
   B  the PETS-HalfCheetah config (preprocess, analytic reward, sort, f32): K2
-  C  ModelEnv.step on 8000 particles (TS1): K3
+  C  ModelEnv.step (TS1): 5 steps on 8,000 particles, and a 20-step rollout of
+     100,000 rows, the batch of MBPO-HalfCheetah's imagined rollouts (uniform
+     random actions stand in for the SAC policy, which is not ported): K3,
+     with the weights packed once per rollout
+  D  config B with a deterministic head: the per-step rollout on K3
 
-and checks that each config's launches went through its kernel and that the
+and checks that each config's launches went through its kernel, that the
 rollout on the card agrees with the plain CPU path on an identical-member
 model. Prints the card, a JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device, and on
@@ -36,6 +42,9 @@ OBS_A, OBS_B, ACT = 17, 18, 6
 POP, PARTICLES, HORIZON = 400, 20, 30
 ENSEMBLE, ELITES, LAYERS, HID = 7, 5, 4, 200
 BATCH = POP * PARTICLES
+# MBPO HalfCheetah: effective_model_rollouts_per_step 400 x freq_train_model 250
+# rows per imagined-rollout step (examples/conf/overrides/mbpo_halfcheetah.yaml)
+MBPO_ROWS, MBPO_STEPS = 100_000, 20
 # published H100 SXM peaks (dense): TF32 and bf16 tensor cores, HBM3
 PEAK_TF32, PEAK_BF16, PEAK_BYTES = 495e12, 989e12, 3.35e12
 # elementwise tolerances (|kernel - plain| <= atol + rtol * |plain|):
@@ -129,15 +138,41 @@ def stack_bytes(stack) -> int:
     return stack.ws.numel() * stack.ws.element_size() + stack.bs.numel() * 4
 
 
-def elite_stack(in_size: int, out_size: int, dtype, g: torch.Generator):
-    """A 5-elite packed stack from the port's own init."""
+def elite_stack(in_size: int, out_size: int, dtype, g: torch.Generator,
+                deterministic: bool = False):
+    """A 5-elite packed stack from the port's own init, and the logvar bounds
+    (None for a deterministic model)."""
     from mbrl_tpu_torch.models import GaussianMLP
 
     model = GaussianMLP(in_size, out_size, LAYERS, ENSEMBLE, HID, activation="silu",
-                        compute_dtype=dtype, device="cuda")
+                        deterministic=deterministic, compute_dtype=dtype, device="cuda")
     params = model.set_elite(model.init(g), list(range(ELITES)))
     p = model._elite_view(params)
+    if deterministic:
+        return model.pack(p), None, None
     return model.pack(p), p["max_logvar"].contiguous(), p["min_logvar"].contiguous()
+
+
+def check_k3(K, x, stack, dt_name: str, what: str):
+    """K3 against its plain version on ``x``; its times and bound."""
+    tiles = K.pack_chain(stack)  # packed once, as a rollout does
+    got = K.fused_ensemble_mlp(x, stack, tiles=tiles)
+    ref = K.fused_ensemble_mlp_plain(x, stack)
+    tol = TOL[("K3", dt_name)]
+    err, ok = max_err(got, ref, tol)
+    check(ok, f"K3 {dt_name} {what} disagrees with its plain version: max abs err {err}")
+    e, rows, _ = x.shape
+    flops = 2.0 * e * rows * macs_per_row(stack.dims)
+    nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4
+    bms, bby = bound(flops, nbytes, stack.low_precision)
+    return {
+        "max_abs_err": err, "tol": tol, "rows": e * rows,
+        "blocks": K.persistent_blocks(rows, e, K.sm_count(x.device)),
+        "ms": time_graph_ms(lambda: K.fused_ensemble_mlp(x, stack, tiles=tiles), 20),
+        "eager_ms": time_ms(lambda: K.fused_ensemble_mlp(x, stack, tiles=tiles), 20),
+        "plain_ms": time_ms(lambda: K.fused_ensemble_mlp_plain(x, stack), 10),
+        "bound_ms": bms, "bound_by": bby,
+    }
 
 
 def max_err(got: torch.Tensor, ref: torch.Tensor, tol: float):
@@ -163,21 +198,12 @@ def kernel_checks():
         x = torch.randn((ELITES, shard, OBS_B + ACT), generator=g).to(dev)
         flops = 2.0 * ELITES * shard * macs_per_row(stack.dims)
 
-        got = K.fused_ensemble_mlp(x, stack)
-        ref = K.fused_ensemble_mlp_plain(x, stack)
-        err, ok = max_err(got, ref, TOL[("K3", dt_name)])
-        check(ok, f"K3 {dt_name} disagrees with its plain version: max abs err {err}")
-        nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4
-        bms, bby = bound(flops, nbytes, bf)
-        results[("K3", dt_name)] = {
-            "max_abs_err": err, "tol": TOL[("K3", dt_name)],
-            "ms": time_graph_ms(lambda: K.fused_ensemble_mlp(x, stack), 20),
-            "eager_ms": time_ms(lambda: K.fused_ensemble_mlp(x, stack), 20),
-            "plain_ms": time_ms(lambda: K.fused_ensemble_mlp_plain(x, stack), 10),
-            "bound_ms": bms, "bound_by": bby,
-        }
+        results[("K3", dt_name)] = check_k3(K, x, stack, dt_name, "C8k")
+        # K3 at config D's shape: the same rows into a deterministic head (18 columns)
+        det, _, _ = elite_stack(OBS_B + ACT, OBS_B, dtype, g, deterministic=True)
+        results[("K3@D", dt_name)] = check_k3(K, x, det, dt_name, "D")
 
-        tiles = K.pack_chain(stack)  # K1/K2's layout, packed once as the rollout does
+        tiles = K.pack_chain(stack)  # the kernels' layout, packed once as the rollout does
         got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False,
                                             tiles=tiles)
         ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B, sample=False)
@@ -210,6 +236,10 @@ def kernel_checks():
 
         # K1 at config A's shape: B=8000, H=30, obs 17, act 6, tile 64
         stack, max_lv, min_lv = elite_stack(OBS_A + ACT, OBS_A + 1, dtype, g)
+        # K3 at the MBPO rollout's shape: E=5 x S=20,000, in 23, head 36 (many waves)
+        x = torch.randn((ELITES, MBPO_ROWS // ELITES, OBS_A + ACT), generator=g).to(dev)
+        results[("K3@C100k", dt_name)] = check_k3(K, x, stack, dt_name, "C100k")
+        del x
         tile = K.pick_tile(shard)
         num_tiles = BATCH // tile
         rot = torch.randint(0, num_tiles, (HORIZON,), generator=g)
@@ -258,7 +288,8 @@ def kernel_checks():
 
 def activation_sweep():
     """K3 and K2 (mean path) for every activation, on a ragged row count
-    (100 rows: one full 64-row tile and one partial), f32 and bf16."""
+    (100 rows: one full 64-row tile and one partial), f32 and bf16; K3 also on
+    a deterministic model's head (18 columns, not 36)."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED + 9)
@@ -280,31 +311,86 @@ def activation_sweep():
                 K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False),
                 K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B, sample=False),
                 tol)
-            check(ok3 and ok2, f"{act} {dt_name}: kernel vs plain max abs err K3 {e3}, K2 {e2}")
-            errs[f"{act}/{dt_name}"] = max(e3, e2)
+            det = K.pack_mlp([w.to(dev) for w in ws[:-1]], [b.to(dev) for b in bs[:-1]],
+                             ws[-1][..., :OBS_B].contiguous().to(dev),
+                             bs[-1][..., :OBS_B].contiguous().to(dev), act, dtype=dtype)
+            ed, okd = max_err(K.fused_ensemble_mlp(x, det), K.fused_ensemble_mlp_plain(x, det), tol)
+            check(ok3 and ok2 and okd, f"{act} {dt_name}: kernel vs plain max abs err K3 {e3}, "
+                                       f"K2 {e2}, K3 deterministic head {ed}")
+            errs[f"{act}/{dt_name}"] = max(e3, e2, ed)
+    return errs
+
+
+def widest_layer():
+    """K3, K2 and K1 (mean paths) against their plain versions at the widest
+    layer the kernels take (256 columns, 128 per warpgroup), f32 and bf16:
+    K3 and K2 on ragged rows, K1 over 3 steps of 640 rows."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(SEED + 10)
+    dev = torch.device("cuda")
+    wide = K.TC_MAX_WIDTH
+    errs = {}
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for name, in_size, out in (("K3", OBS_B + ACT, OBS_B), ("K2", OBS_B + ACT, OBS_B),
+                                   ("K1", OBS_A + ACT, OBS_A + 1)):
+            dims = (in_size, wide, wide, 2 * out)
+            ws = [(torch.randn((ELITES, a, b), generator=g) / a**0.5).to(dev)
+                  for a, b in zip(dims[:-1], dims[1:])]
+            bs = [(0.1 * torch.randn((ELITES, 1, b), generator=g)).to(dev) for b in dims[1:]]
+            stack = K.pack_mlp(ws[:-1], bs[:-1], ws[-1], bs[-1], "silu", dtype=dtype)
+            max_lv = torch.full((1, out), 0.5, device=dev)
+            min_lv = torch.full((1, out), -10.0, device=dev)
+            if name == "K1":
+                batch, steps = ELITES * 2 * K.MAX_TILE, 3
+                rot = torch.tensor([0, 3, 7], dtype=torch.int32, device=dev)
+                obs0 = (0.1 * torch.randn((batch, OBS_A), generator=g)).to(dev)
+                acts = (torch.rand((batch, steps, ACT), generator=g) * 2 - 1).to(dev)
+                args = (rot, obs0, acts, torch.ones((1, OBS_A), device=dev), stack, max_lv, min_lv,
+                        out, K.MAX_TILE)
+                got = K.fused_rollout_returns(g, *args, sample=False)
+                ref = K.fused_rollout_returns_plain(g, *args, sample=False)
+            else:
+                x = torch.randn((ELITES, 100, in_size), generator=g).to(dev)
+                if name == "K2":
+                    got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=False)
+                    ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out,
+                                                              sample=False)
+                else:
+                    got = K.fused_ensemble_mlp(x, stack)
+                    ref = K.fused_ensemble_mlp_plain(x, stack)
+            err, ok = max_err(got, ref, TOL[(name, dt_name)])
+            check(ok, f"{name} {dt_name} at width {wide} disagrees with its plain version: "
+                      f"max abs err {err}")
+            errs[f"{name}/{dt_name}"] = err
     return errs
 
 
 # --------------------------------------------------------------------------- #
 # Phases 3-5: the main path through the port's entry points
 # --------------------------------------------------------------------------- #
-def build_config(name: str, device: str, g: torch.Generator, identical: bool = False):
+def build_config(name: str, device: str, g: torch.Generator, identical: bool = False,
+                 dtype: str = "bfloat16"):
+    """Config A (with its model in ``dtype``), B or D: environment, state, obs width."""
     from mbrl_tpu_torch.envs import reward_fns, termination_fns
     from mbrl_tpu_torch.envs.pets_halfcheetah import HalfCheetahEnv
     from mbrl_tpu_torch.models import GaussianMLP, ModelEnv, TransitionRewardModel
 
-    if name == "A":  # bench.py:_build_env: learned rewards, rotate, bf16
+    if name == "A":
+        # bench.py:_build_env: learned rewards, rotate, bf16
         model = GaussianMLP(OBS_A + ACT, OBS_A + 1, LAYERS, ENSEMBLE, HID, activation="silu",
                             propagation_method="random_model", rollout_shuffle="rotate",
-                            compute_dtype="bfloat16", device=device)
+                            compute_dtype=dtype, device=device)
         wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
                                         learned_rewards=True)
         env_kw = {}
         obs_dim = OBS_A
-    else:  # overrides/pets_halfcheetah.yaml + gaussian_mlp_ensemble.yaml
+    else:
+        # B: overrides/pets_halfcheetah.yaml + gaussian_mlp_ensemble.yaml; D: the
+        # same with that file's `deterministic` knob on
         model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, ENSEMBLE, HID, activation="silu",
                             propagation_method="random_model", rollout_shuffle="sort",
-                            device=device)
+                            deterministic=name == "D", device=device)
         wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
                                         learned_rewards=False,
                                         obs_process_fn=HalfCheetahEnv.preprocess_fn,
@@ -318,8 +404,9 @@ def build_config(name: str, device: str, g: torch.Generator, identical: bool = F
         params = state["params"]
         for leaf in [l for layer in params["layers"] for l in layer.values()] + list(params["head"].values()):
             leaf.copy_(leaf[:1].clone().expand_as(leaf))
-        params["min_logvar"].fill_(-20.0)
-        params["max_logvar"].fill_(-19.0)
+        if not model.deterministic:
+            params["min_logvar"].fill_(-20.0)
+            params["max_logvar"].fill_(-19.0)
     env = ModelEnv(wrapper, termination_fns.no_termination, **env_kw)
     return env, state, obs_dim
 
@@ -343,7 +430,7 @@ def agreement(name: str, pop: int) -> float:
 
 
 def make_agent(name: str, device: str = "cuda"):
-    """The CEM MPC agent of config A or B: 5 iterations, elite ratio 0.16,
+    """The CEM MPC agent of config A, B or D: 5 iterations, elite ratio 0.16,
     alpha 0.12, mean of the elites, actions in [-1, 1]."""
     from mbrl_tpu_torch.planning import (
         CEMOptimizer, TrajectoryOptimizerAgent, create_trajectory_optim_agent_for_model,
@@ -379,7 +466,7 @@ def plan_config(name: str, device: str = "cuda"):
 
 
 def device_busy(name: str, acts: int = 2):
-    """Warm ``act``s of config A or B under ``torch.profiler``: the share of
+    """Warm ``act``s of config A, B or D under ``torch.profiler``: the share of
     their wall time in which the card ran anything (union of device
     intervals), and the share in the port's own kernels. The profiler slows
     the host, so these wall times are not the ``act`` times above."""
@@ -404,7 +491,7 @@ def device_busy(name: str, acts: int = 2):
         end = max(end, e)
     ours = sum(e - s for s, e, n in spans
                if n.split("<")[0].split()[-1] in ("rollout_returns_tc_kernel", "gaussian_tc_kernel",
-                                                  "ensemble_mlp_kernel"))
+                                                  "ensemble_mlp_tc_kernel"))
     by_name = {}
     for s, e, n in spans:
         by_name[n[:48]] = by_name.get(n[:48], 0.0) + (e - s) / 1e3
@@ -414,18 +501,46 @@ def device_busy(name: str, acts: int = 2):
             "top_device_ms": dict(top)}
 
 
-def step_config_c(device: str = "cuda"):
-    g = torch.Generator().manual_seed(SEED + 2)
-    env, state, obs_dim = build_config("B", device, g)
-    obs = 0.1 * torch.randn((BATCH, obs_dim), generator=g)
+def run_steps(env, state, obs_dim: int, device: str, g: torch.Generator, rows: int, steps: int,
+              prepare: bool):
+    """``steps`` ``ModelEnv.step``s on ``rows`` particles with uniform random
+    actions, after ``prepare_rollout`` if asked; ms per step. The elite
+    weights must be packed once for all the steps."""
+    model = env.dynamics_model.model
+    obs = 0.1 * torch.randn((rows, obs_dim), generator=g)
     model_state = env.reset(state, obs, g)
-    for _ in range(5):
-        act = torch.rand((BATCH, ACT), generator=g) * 2 - 1
+    if prepare:
+        model_state = env.dynamics_model.prepare_rollout(state, model_state, steps, g)
+    times = []
+    for _ in range(steps):
+        act = (torch.rand((rows, ACT), generator=g) * 2 - 1).to(device)
+        sync(device)
+        t0 = time.perf_counter()
         next_obs, rewards, term, model_state = env.step(state, act, model_state, g)
-        check(tuple(next_obs.shape) == (BATCH, obs_dim) and tuple(rewards.shape) == (BATCH, 1),
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(next_obs.shape) == (rows, obs_dim) and tuple(rewards.shape) == (rows, 1),
               f"config C: bad shapes {tuple(next_obs.shape)} {tuple(rewards.shape)}")
         check(bool(torch.isfinite(next_obs).all() and torch.isfinite(rewards).all()),
               "config C: non-finite step output")
+    check(model.packs == 1, f"config C: weights packed {model.packs} times in {steps} steps, not once")
+    return times
+
+
+def step_config_c(device: str = "cuda"):
+    """5 ``ModelEnv.step``s on the planner's ``BATCH`` particles, config B's model."""
+    g = torch.Generator().manual_seed(SEED + 2)
+    env, state, obs_dim = build_config("B", device, g)
+    return run_steps(env, state, obs_dim, device, g, BATCH, 5, prepare=False)
+
+
+def rollout_config_c(device: str = "cuda"):
+    """The MBPO-shaped rollout: ``MBPO_STEPS`` steps on ``MBPO_ROWS`` rows of
+    config A's model (obs 17, learned reward) in f32, MBPO's dtype
+    (dynamics_model/gaussian_mlp_ensemble.yaml), after ``prepare_rollout``."""
+    g = torch.Generator().manual_seed(SEED + 2)
+    env, state, obs_dim = build_config("A", device, g, dtype="float32")
+    return run_steps(env, state, obs_dim, device, g, MBPO_ROWS, MBPO_STEPS, prepare=True)
 
 
 def main() -> int:
@@ -447,10 +562,11 @@ def main() -> int:
 
     results = kernel_checks()
     print("activations, ragged rows (max abs err): " + json.dumps(activation_sweep()), flush=True)
+    print(f"widest layer, {K.TC_MAX_WIDTH} columns (max abs err): " + json.dumps(widest_layer()),
+          flush=True)
 
-    agree_a = agreement("A", pop=40)
-    agree_b = agreement("B", pop=40)
-    print(f"agreement card vs cpu (identical members): A {agree_a:.3g}, B {agree_b:.3g}", flush=True)
+    agree = {name: agreement(name, pop=40) for name in ("A", "B", "D")}
+    print("agreement card vs cpu (identical members): " + json.dumps(agree), flush=True)
 
     # the main path, one config at a time: counts set to 0 just before each
     # config and read just after it
@@ -461,41 +577,56 @@ def main() -> int:
 
     times_a, counts_a = counted(lambda: plan_config("A"))
     times_b, counts_b = counted(lambda: plan_config("B"))
-    _, counts_c = counted(step_config_c)
+    times_c8, counts_c8 = counted(step_config_c)
+    times_c100, counts_c100 = counted(rollout_config_c)
+    times_d, counts_d = counted(lambda: plan_config("D"))
+    counts_c = {k: counts_c8[k] + counts_c100[k] for k in counts_c8}
     print(f"config A act ms: {times_a}  launches {counts_a}", flush=True)
     print(f"config B act ms: {times_b}  launches {counts_b}", flush=True)
-    print(f"config C launches {counts_c}", flush=True)
+    print(f"config C step ms, {BATCH} rows: {times_c8}  launches {counts_c8}", flush=True)
+    print(f"config C step ms, {MBPO_ROWS} rows (weights packed once): {times_c100}  "
+          f"launches {counts_c100}", flush=True)
+    print(f"config D act ms: {times_d}  launches {counts_d}", flush=True)
     expected = {
         "A": (counts_a, {"fused_rollout_returns": 15, "fused_ensemble_mlp_gaussian": 0,
                          "fused_ensemble_mlp": 0}),  # 5 K1 per plan, 3 plans
         "B": (counts_b, {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 450,
                          "fused_ensemble_mlp": 0}),  # 5 x 30 K2 per plan, 3 plans
         "C": (counts_c, {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0,
-                         "fused_ensemble_mlp": 5}),  # one K3 per step, 5 steps
+                         "fused_ensemble_mlp": 5 + MBPO_STEPS}),  # one K3 per step
+        "D": (counts_d, {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0,
+                         "fused_ensemble_mlp": 450}),  # 5 x 30 K3 per plan, 3 plans
     }
     for name, (got, want) in expected.items():
         check(got == want, f"config {name}: expected launches {want}, got {got}")
-    profiles = {name: device_busy(name) for name in ("A", "B")}
+    profiles = {name: device_busy(name) for name in ("A", "B", "D")}
     print("device profile: " + json.dumps(profiles), flush=True)
 
-    main_dtype = {"K1": "bf16", "K2": "f32", "K3": "f32"}
-    wrapper_of = {"K1": "fused_rollout_returns", "K2": "fused_ensemble_mlp_gaussian",
-                  "K3": "fused_ensemble_mlp"}
-    path_counts = {"K1": counts_a, "K2": counts_b, "K3": counts_c}
+    # K3 three times, each row checked and timed at the shape that its launches
+    # had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout steps
+    k3 = "fused_ensemble_mlp"
+    rows = {  # row: (wrapper, the main path's dtype, its launches there)
+        "K1": ("fused_rollout_returns", "bf16", counts_a["fused_rollout_returns"]),
+        "K2": ("fused_ensemble_mlp_gaussian", "f32", counts_b["fused_ensemble_mlp_gaussian"]),
+        "K3": (k3, "f32", counts_c8[k3]),
+        "K3@C100k": (k3, "f32", counts_c100[k3]),
+        "K3@D": (k3, "f32", counts_d[k3]),
+    }
     source = {"K1": "mbrl_tpu_torch/csrc/tc_chain.cu", "K2": "mbrl_tpu_torch/csrc/tc_chain.cu",
               "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
+    stated = ("tol", "rows", "blocks")  # not measured: printed with the per-dtype rows above
     line = []
-    for k in ("K1", "K2", "K3"):
-        r = results[(k, main_dtype[k])]
-        other = "f32" if main_dtype[k] == "bf16" else "bf16"
+    for k, (wrapper, dtype, launches) in rows.items():
+        r = results[(k, dtype)]
+        other = "f32" if dtype == "bf16" else "bf16"
         line.append({
-            "name": f"{wrapper_of[k]} ({k}, {main_dtype[k]})",
+            "name": f"{wrapper} ({k}, {dtype})",
             "route": "cuda",
-            "source": source[k],
-            "replaces": REPLACES[k],
-            "tpu_kernel": REPLACES[k],
-            "dtype": main_dtype[k],
-            "launches": path_counts[k][wrapper_of[k]],
+            "source": source[k.split("@")[0]],
+            "replaces": REPLACES[k.split("@")[0]],
+            "tpu_kernel": REPLACES[k.split("@")[0]],
+            "dtype": dtype,
+            "launches": launches,
             "max_abs_err": r["max_abs_err"],
             "max_err": r["max_abs_err"],
             "ms": r["ms"],
@@ -505,9 +636,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,
-            "other_dtype": {"dtype": other, **results[(k, other)]},
+            "other_dtype": {"dtype": other, **{key: v for key, v in results[(k, other)].items()
+                                               if key not in stated}},
         })
-    print(json.dumps({"act_ms": {"A": times_a, "B": times_b}, "build_s": build_s,
+    print(json.dumps({"act_ms": {"A": times_a, "B": times_b, "D": times_d},
+                      "step_ms": {"C8k": times_c8, "C100k": times_c100}, "build_s": build_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

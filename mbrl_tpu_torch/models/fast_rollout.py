@@ -14,8 +14,8 @@ trivial termination, a stochastic head and a row tile that divides the member
 shard), the whole horizon is one call of
 :func:`~mbrl_tpu_torch.ops.kernels.fused_rollout_returns`. Otherwise every step's
 member chain is one call of K2 (stochastic head) or K3 (deterministic head).
-Each wrapper launches its CUDA kernel on CUDA tensors and runs its plain
-PyTorch version on CPU tensors.
+Each wrapper launches its CUDA kernel on CUDA tensors (and raises on a model
+wider than the kernels take) and runs its plain PyTorch version on CPU tensors.
 
 Semantics match the generic path distribution-for-distribution; random
 streams are consumed differently, so results agree statistically.
@@ -97,8 +97,8 @@ def evaluate_action_sequences_sharded(
         layer_ws, layer_bs, p["head"]["w"], p["head"]["b"], model.activation_name,
         dtype=model.compute_dtype,
     )
-    # K1/K2's own layout of the same stack, packed once per rollout for the card
-    tiles = kernels.pack_chain(stack) if dev.type == "cuda" and stochastic else None
+    # the kernels' own layout of the same stack, packed once per rollout for the card
+    tiles = kernels.pack_chain(stack) if dev.type == "cuda" else None
     max_lv = p["max_logvar"].float().contiguous() if stochastic else None
     min_lv = p["min_logvar"].float().contiguous() if stochastic else None
 
@@ -180,7 +180,7 @@ def evaluate_action_sequences_sharded(
                 generator, x, stack, max_lv, min_lv, out_size, tiles=tiles
             )
         else:
-            pred = kernels.fused_ensemble_mlp(x, stack)
+            pred = kernels.fused_ensemble_mlp(x, stack, tiles=tiles)
         pred = pred.reshape(batch, out_size)
 
         next_obs = pred[:, :-1] if learned_rewards else pred

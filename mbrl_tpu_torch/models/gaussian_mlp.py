@@ -9,11 +9,15 @@ explicit ``torch.Generator``.
 ``forward`` (the all-member broadcast forward, used by the ``expectation``
 propagation and the per-row fallback) stays ``torch.matmul``; the equal-shard
 forward ``_forward_sharded`` goes through kernel K3
-(:func:`mbrl_tpu_torch.ops.kernels.fused_ensemble_mlp`). ``loss`` and
-``eval_score`` come with the training slice.
+(:func:`mbrl_tpu_torch.ops.kernels.fused_ensemble_mlp`), which on the card
+takes layers up to 256 wide and raises on a wider model. The elite view and its
+packed weights are kept per model state (:meth:`GaussianMLP.packed`), so a
+rollout of steps packs once. ``loss`` and ``eval_score`` come with the training
+slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -31,6 +35,19 @@ def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[str(dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Packed:
+    """One model state's elite view and packed weights (``GaussianMLP.packed``).
+    ``leaves`` holds the tensors the entry was packed from, so that none of
+    them can be freed and its identity reused while the entry lives."""
+
+    key: Tuple[Any, ...]
+    leaves: Tuple[torch.Tensor, ...]
+    view: Params
+    stack: kernels.MLPStack
+    tiles: Optional[kernels.ChainTiles]
 
 
 class GaussianMLP:
@@ -80,6 +97,8 @@ class GaussianMLP:
         self.activation = _ACTIVATIONS[activation]
         self.compute_dtype = as_dtype(compute_dtype)
         self.rollout_shuffle = rollout_shuffle
+        self._packed: Optional[_Packed] = None  # one entry: the last params packed
+        self.packs = 0  # times `packed` had to pack anew
 
     # ------------------------------------------------------------------ #
     # Params
@@ -158,6 +177,30 @@ class GaussianMLP:
             dtype=self.compute_dtype,
         )
 
+    def packed(self, params: Params) -> _Packed:
+        """The elite view of ``params`` with its packed weight stack and, on
+        the card, the kernels' tiles. Kept for as long as ``params`` holds the
+        same tensors, unchanged (identity and in-place version of every
+        leaf) and the model the same dtype and activation, so the steps of a
+        rollout pack once; ``set_elite``, new weights or an in-place update
+        pack anew."""
+        leaves = [params["elite"], params["head"]["w"], params["head"]["b"]]
+        for layer in params["layers"]:
+            leaves += [layer["w"], layer["b"]]
+        if not self.deterministic:
+            leaves += [params["min_logvar"], params["max_logvar"]]
+        key = (self.compute_dtype, self.activation_name, tuple(t._version for t in leaves))
+        hit = self._packed
+        if (hit is not None and hit.key == key and len(hit.leaves) == len(leaves)
+                and all(a is b for a, b in zip(hit.leaves, leaves))):
+            return hit
+        view = self._elite_view(params)
+        stack = self.pack(view)
+        tiles = kernels.pack_chain(stack) if stack.ws.device.type == "cuda" else None
+        self._packed = _Packed(key, tuple(leaves), view, stack, tiles)
+        self.packs += 1
+        return self._packed
+
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
@@ -196,13 +239,14 @@ class GaussianMLP:
         inv: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Equal-shard propagation: permute the batch, give each elite member an
-        equal contiguous shard, forward through kernel K3, un-permute. Requires
-        B % num_elites == 0."""
-        p = self._elite_view(params)
+        equal contiguous shard, forward, un-permute. Requires
+        B % num_elites == 0. The forward is kernel K3."""
+        cached = self.packed(params)
+        p = cached.view
         num_used = p["head"]["w"].shape[0]
         batch = x.shape[0]
         h = x[perm].reshape(num_used, batch // num_used, x.shape[-1]).float().contiguous()
-        raw = kernels.fused_ensemble_mlp(h, self.pack(p))
+        raw = kernels.fused_ensemble_mlp(h, cached.stack, tiles=cached.tiles)
         mean, logvar = self._bound(p, raw)
         mean = mean.reshape(batch, -1)
         if logvar is not None:

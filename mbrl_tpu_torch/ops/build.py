@@ -108,7 +108,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
     dims = ctypes.POINTER(ctypes.c_int)
-    lib.mbrl_ensemble_mlp.argtypes = [p, p, p, p, dims, i, i, i, i, i, p]
+    lib.mbrl_ensemble_mlp.argtypes = [p, p, p, p, dims, i, i, i, i, i, i, ll, p]
     lib.mbrl_ensemble_mlp.restype = i
     lib.mbrl_ensemble_mlp_gaussian.argtypes = [
         u, u, p, p, p, p, p, p, dims, i, i, i, i, i, i, i, ll, p

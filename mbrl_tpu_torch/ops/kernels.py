@@ -1,9 +1,10 @@
 """Ensemble-MLP rollout kernels (counterpart of ``mbrl_tpu/ops/pallas_kernels.py``).
 
 Three kernels, hand-written in CUDA for Hopper, each beside a plain PyTorch
-version of the same function with the same signature. K1 and K2 run their
-products on the tensor cores (``wgmma``, ``csrc/tc_chain.cu``); K3 runs FMA
-chains on the CUDA cores (``csrc/ensemble_mlp.cu``):
+version of the same function with the same signature. All three run their
+products on the tensor cores (``wgmma``) through one member-chain routine
+(``csrc/tc_chain.cuh``): K1 and K2 in ``csrc/tc_chain.cu``, K3 in
+``csrc/ensemble_mlp.cu``:
 
 ====  ==========================  ==========================================
 K1    :func:`fused_rollout_returns`       whole H-step rollout, one launch
@@ -22,24 +23,28 @@ product are rounded to bf16 and accumulated in f32, as the TPU kernels do
 (``pallas_kernels.py:186-195``, :352-353); the plain versions emulate that by
 rounding to bf16 and multiplying in f32, which is exact for bf16 operands.
 
-K1 and K2 read their weights in another layout, packed once per rollout by
+The kernels read their weights in another layout, packed once per rollout by
 :func:`pack_chain` (:class:`ChainLayout`): chunks already in ``wgmma``'s
 shared-memory layout, bf16, or for an f32 stack two tf32 copies (hi, lo) for
 3xTF32 products that keep f32-grade results.
+
+The kernels take chains of at most ``MAX_PRODUCTS`` products and layers at
+most ``TC_MAX_WIDTH`` wide (:func:`supports_fused_mlp`); on the card the
+wrappers raise on anything else.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from mbrl_tpu_torch.device import seed_words
 
-# compile-time activation codes of csrc/ensemble_mlp.cu
+# compile-time activation codes of csrc/common.cuh
 ACTIVATION_CODES: Dict[str, int] = {
     "relu": 0,
     "silu": 1,
@@ -61,13 +66,12 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
 }
 
-# limits of the CUDA kernels' register tile and parameter block
-MAX_WIDTH = 256
+# limits of the CUDA kernels (csrc/tc_chain.cuh): products of one chain, rows of
+# one block's tile, widest layer (two warpgroups of at most 128 accumulator
+# columns), stages of the weight ring, and the shared memory a block can use
 MAX_PRODUCTS = 9
-MAX_TILE = 64  # K1: rows of one block
-# K1/K2 (csrc/tc_chain.cu): widest layer, stages of the weight ring, and the
-# shared memory a block can use
-TC_MAX_WIDTH = 240
+MAX_TILE = 64
+TC_MAX_WIDTH = 256
 TC_MAX_STAGES = 4
 TC_SMEM_BYTES = 232_448
 
@@ -130,8 +134,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ChainLayout:
-    """Where K1/K2 find a member's weights (mirrors ``make_chain_desc`` in
-    ``csrc/tc_chain.cu``).
+    """Where the kernels find a member's weights (mirrors ``make_chain_desc``
+    in ``csrc/tc_chain.cuh``).
 
     Product i is a zero-padded (k_pad[i], n_pad[i]) matrix: K padded to the
     instruction depth (16 bf16, 8 tf32), N to the next layer's K, the head's N
@@ -195,7 +199,7 @@ class ChainLayout:
 
 @dataclasses.dataclass(frozen=True)
 class ChainTiles:
-    """A weight stack packed for K1/K2: ``w`` is (E, layout.member_elems),
+    """A weight stack packed for the kernels: ``w`` is (E, layout.member_elems),
     bf16, or f32 holding tf32 values."""
 
     w: torch.Tensor
@@ -216,7 +220,8 @@ def _core_blocks(w: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def pack_chain(stack: MLPStack) -> ChainTiles:
-    """Pack ``stack`` into K1/K2's layout (:class:`ChainLayout`); once per rollout."""
+    """Pack ``stack`` into the kernels' layout (:class:`ChainLayout`); once per
+    rollout, or once per model state (``GaussianMLP.packed``)."""
     lay = ChainLayout(stack.dims, stack.low_precision)
     parts = []
     for i in range(stack.num_products):
@@ -252,9 +257,30 @@ def unpack_chain(tiles: ChainTiles, i: int) -> Tuple[torch.Tensor, ...]:
 
 
 def supports_fused_mlp(dims: Sequence[int]) -> bool:
-    """Whether the CUDA kernels take this chain (any row count is fine: the
-    kernels mask the ragged last tile)."""
-    return 1 <= len(dims) - 1 <= MAX_PRODUCTS and all(1 <= d <= MAX_WIDTH for d in dims)
+    """Whether K2 and K3 take this chain, in f32 and in bf16: at most
+    ``MAX_PRODUCTS`` products of widths up to ``TC_MAX_WIDTH``, which always
+    leaves room for the weight ring. Any row count is fine (the kernels mask
+    the ragged last tile). On the card the wrappers raise where it is false."""
+    return 1 <= len(dims) - 1 <= MAX_PRODUCTS and all(1 <= d <= TC_MAX_WIDTH for d in dims)
+
+
+def persistent_blocks(rows_per_member: int, num_members: int, num_sms: int) -> int:
+    """K3's grid: one block per (member, 64-row tile) until they outgrow the
+    card's SMs (a block fills an SM's shared memory, so more would only
+    queue), then one persistent block per SM that walks the tiles
+    (:func:`block_tiles`)."""
+    num_tiles = -(-rows_per_member // MAX_TILE)
+    return min(num_members * num_tiles, num_sms)
+
+
+def block_tiles(
+    block: int, rows_per_member: int, num_members: int, blocks: int
+) -> List[Tuple[int, int]]:
+    """The (member, row tile) pairs that K3's block ``block`` of ``blocks``
+    runs, in order (the kernel's tile loop): every ``blocks``-th of the
+    member-major list, so the blocks' shares differ by at most one tile."""
+    num_tiles = -(-rows_per_member // MAX_TILE)
+    return [divmod(w, num_tiles) for w in range(block, num_members * num_tiles, blocks)]
 
 
 def pick_tile(rows_per_member: int, max_tile: int = MAX_TILE, min_tile: int = 8) -> Optional[int]:
@@ -278,16 +304,21 @@ def _round_operand(h: torch.Tensor, low_precision: bool) -> torch.Tensor:
 
 def _plain_chain(x: torch.Tensor, stack: MLPStack) -> torch.Tensor:
     """(E, S, in) f32 → (E, S, head_out) f32 through the member chain."""
-    # plain reference path: full-f32 products, never TF32 (which keeps ~3 digits)
-    torch.backends.cuda.matmul.allow_tf32 = False
     act = ACTIVATIONS[stack.activation]
     h = x.float()
     last = stack.num_products - 1
-    for i in range(stack.num_products):
-        w, b = stack.product(i)
-        h = torch.bmm(_round_operand(h, stack.low_precision), w.float()) + b
-        if i < last:
-            h = act(h)
+    # plain reference path: full-f32 products, never TF32 (which keeps ~3
+    # digits); the caller's setting comes back after the products
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(stack.num_products):
+            w, b = stack.product(i)
+            h = torch.bmm(_round_operand(h, stack.low_precision), w.float()) + b
+            if i < last:
+                h = act(h)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     return h
 
 
@@ -403,24 +434,18 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_stack(stack: MLPStack, device: torch.device) -> None:
+def _check_tiles(
+    stack: MLPStack, tiles: Optional[ChainTiles], device: torch.device, extra_bytes: int = 0
+) -> ChainTiles:
+    """The kernels' checks of the stack and its packed tiles (packed here if None)."""
     if not supports_fused_mlp(stack.dims):
         raise ValueError(
-            f"chain dims {stack.dims} exceed the kernel's limits "
-            f"({MAX_PRODUCTS} products, width {MAX_WIDTH})"
+            f"chain dims {stack.dims} exceed the kernels' limits "
+            f"({MAX_PRODUCTS} products, width {TC_MAX_WIDTH})"
         )
     if stack.ws.dtype not in (torch.float32, torch.bfloat16) or stack.bs.dtype != torch.float32:
         raise TypeError(f"weights must be f32/bf16 and biases f32, got {stack.ws.dtype}/{stack.bs.dtype}")
     _check_cuda(device, ws=stack.ws, bs=stack.bs)
-
-
-def _check_tiles(
-    stack: MLPStack, tiles: Optional[ChainTiles], device: torch.device, extra_bytes: int = 0
-) -> ChainTiles:
-    """K1/K2's checks of the stack and its packed tiles (packed here if None)."""
-    _check_stack(stack, device)
-    if max(stack.dims) > TC_MAX_WIDTH:
-        raise ValueError(f"chain dims {stack.dims} exceed the tensor-core kernels' width {TC_MAX_WIDTH}")
     if tiles is None:
         tiles = pack_chain(stack)
     lay = tiles.layout
@@ -463,8 +488,19 @@ def _dispatch(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def fused_ensemble_mlp(x: torch.Tensor, stack: MLPStack) -> torch.Tensor:
-    """K3: per-member-sharded ensemble forward, raw head. x (E, S, in) → (E, S, head_out)."""
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (132 on an H100)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fused_ensemble_mlp(
+    x: torch.Tensor, stack: MLPStack, tiles: Optional[ChainTiles] = None
+) -> torch.Tensor:
+    """K3: per-member-sharded ensemble forward, raw head. x (E, S, in) →
+    (E, S, head_out), any head width (``2 * out`` of a Gaussian model, ``out``
+    of a deterministic one). ``tiles`` is ``pack_chain(stack)``, packed here
+    when not given (pack once per rollout or model state)."""
     if not _dispatch(x):
         return fused_ensemble_mlp_plain(x, stack)
     from mbrl_tpu_torch.ops.build import load_library
@@ -472,15 +508,17 @@ def fused_ensemble_mlp(x: torch.Tensor, stack: MLPStack) -> torch.Tensor:
     e, rows, din = x.shape
     _check_f32(x=x)
     _check_cuda(x.device, x=x)
-    _check_stack(stack, x.device)
-    if e != stack.num_members or din != stack.dims[0]:
+    tiles = _check_tiles(stack, tiles, x.device)
+    if e != stack.num_members or din != stack.dims[0] or rows < 1:
         raise ValueError(f"x {tuple(x.shape)} does not match stack dims {stack.dims} (E={stack.num_members})")
     out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
     lib = load_library()
     code = lib.mbrl_ensemble_mlp(
-        x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
+        x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
         _dims_arg(stack), stack.num_products, e, rows,
-        ACTIVATION_CODES[stack.activation], int(stack.low_precision), _stream(x.device),
+        persistent_blocks(rows, e, sm_count(x.device)),
+        ACTIVATION_CODES[stack.activation], int(stack.low_precision),
+        tiles.layout.member_elems, _stream(x.device),
     )
     _raise_on_error(code, "fused_ensemble_mlp")
     fused_ensemble_mlp.launches += 1

@@ -7,6 +7,8 @@ deterministic, so member assignment cannot matter and both sides must agree to
 means over many independent rollouts agree within standard error and the
 port's estimator is not noisier (the method of
 tests/test_fast_rollout.py::test_full_horizon_kernel_statistical_agreement)."""
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -167,6 +169,45 @@ def test_statistical_agreement(shuffle, prop):
     se = np.sqrt((var_j + var_t) / n_keys) + 1e-6
     np.testing.assert_array_less(np.abs(mean_t - mean_j), 5.0 * se + 1e-3)
     assert float(var_t.mean()) <= 1.5 * float(var_j.mean()) + 1e-6, (var_t.mean(), var_j.mean())
+
+
+@pytest.mark.parametrize("shuffle,prop", [("rotate", "random_model"), ("sort", "random_model"),
+                                          ("sort", "fixed_model")])
+def test_statistical_agreement_deterministic_head(shuffle, prop):
+    """The per-step K3 path on distinct members: the member-assignment
+    schedule is all that is random."""
+    jw, jstate, tw, tstate = _build(5, shuffle=shuffle, prop=prop, deterministic=True, seed=7)
+    jenv, tenv = _envs(jw, tw)
+    seqs, obs0 = _inputs(5, pop=4, horizon=5, seed=4)
+    n_keys, particles = 32, 16
+    f = jax.jit(lambda k: jenv.evaluate_action_sequences(jstate, seqs, obs0, k, num_particles=particles))
+    vals_j = np.stack([np.asarray(f(k)) for k in jax.random.split(jax.random.PRNGKey(3), n_keys)])
+    g = torch.Generator().manual_seed(3)
+    vals_t = np.stack([
+        tenv.evaluate_action_sequences(tstate, seqs, obs0, g, num_particles=particles).numpy()
+        for _ in range(n_keys)
+    ])
+    se = np.sqrt((vals_j.var(0) + vals_t.var(0)) / n_keys) + 1e-6
+    np.testing.assert_array_less(np.abs(vals_t.mean(0) - vals_j.mean(0)), 5.0 * se + 1e-3)
+    assert float(vals_t.var(0).mean()) <= 1.5 * float(vals_j.var(0).mean()) + 1e-6
+
+
+@pytest.mark.parametrize("hid", [16, 248])
+def test_deterministic_head_rollout_width_gate(monkeypatch, hid):
+    """A deterministic head steps through the K3 wrapper, one call a step, at
+    a narrow and at a wide model; both match mbrl_tpu's rollout on an
+    identical-member model."""
+    monkeypatch.setattr(sys.modules[__name__], "HID", hid)
+    calls = []
+    orig = kernels.fused_ensemble_mlp
+    monkeypatch.setattr(kernels, "fused_ensemble_mlp",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    jw, jstate, tw, tstate = _build(5, shuffle="sort", deterministic=True, identical=True)
+    jenv, tenv = _envs(jw, tw)
+    seqs, obs0 = _inputs(5, horizon=3)
+    jv, tv = _evaluate_both(jenv, jstate, tenv, tstate, seqs, obs0)
+    assert len(calls) == 3
+    np.testing.assert_allclose(tv, jv, rtol=1e-4, atol=1e-4)
 
 
 def test_fold_normalizer_exact():

@@ -27,7 +27,9 @@ from mbrl_tpu.ops import pallas_kernels as pk
 from mbrl_tpu_torch.ops import kernels as tk
 
 MAIN_DIMS = [(23, 200, 200, 200, 200, 36), (24, 200, 200, 200, 200, 36)]
+DET_DIMS = (24, 200, 200, 200, 200, 18)  # a deterministic model's head: out, not 2 * out
 RAGGED_DIMS = (7, 13, 30, 10)  # no width a multiple of 8
+WIDEST_DIMS = (24, 256, 256, 36)  # the widest layer the kernels take
 
 
 def _stack(dims, dtype, seed=0, e=2, activation="silu"):
@@ -39,7 +41,8 @@ def _stack(dims, dtype, seed=0, e=2, activation="silu"):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("dims", MAIN_DIMS + [RAGGED_DIMS], ids=["main23", "main24", "ragged"])
+@pytest.mark.parametrize("dims", MAIN_DIMS + [RAGGED_DIMS, DET_DIMS, WIDEST_DIMS],
+                         ids=["main23", "main24", "ragged", "head18", "widest"])
 def test_layout_round_trips_with_zero_pads(dims, dtype):
     stack = _stack(dims, dtype)
     tiles = tk.pack_chain(stack)
@@ -71,6 +74,16 @@ def test_main_shapes_pad_to_the_instruction(low_precision):
         assert lay.n_pad == (200, 200, 200, 200, 40)
     # K1's shared-memory plan (obs carry of 17) leaves room for the ring
     assert lay.stages(4 * tk.MAX_TILE * 18) >= 2
+
+
+@pytest.mark.parametrize("low_precision", [False, True], ids=["f32", "bf16"])
+def test_deterministic_head_pads_to_24_columns(low_precision):
+    """Head 18 is padded to 24 columns (three 8-column groups, split 2 + 1
+    between the warpgroups), and the head tile fits the activation region."""
+    lay = tk.ChainLayout(DET_DIMS, low_precision)
+    assert lay.n_pad[-1] == 24 and lay.n_pad[:-1] == lay.k_pad[1:]
+    assert lay.stages() >= 2
+    assert tk.MAX_TILE * lay.n_pad[-1] * 4 <= lay.copies * tk.MAX_TILE * max(lay.k_pad) * lay.esize
 
 
 @pytest.mark.parametrize("dtype,k_rows,scale", [(torch.float32, 40, 32), (torch.bfloat16, 15, 16)],
@@ -132,11 +145,12 @@ def _emulated_3xtf32_chain(x: torch.Tensor, stack: tk.MLPStack) -> torch.Tensor:
     return h
 
 
+@pytest.mark.parametrize("head", [36, 18], ids=["gaussian", "deterministic"])
 @pytest.mark.parametrize("activation", ["silu", "tanh", "relu"])
-def test_3xtf32_emulation_matches_jax_kernel_and_plain(activation):
+def test_3xtf32_emulation_matches_jax_kernel_and_plain(activation, head):
     from mbrl_tpu.models.gaussian_mlp import _ACTIVATIONS
 
-    e, dims = 3, (24, 64, 64, 64, 36)
+    e, dims = 3, (24, 64, 64, 64, head)
     stack = _stack(dims, torch.float32, seed=5, e=e, activation=activation)
     rng = np.random.default_rng(6)
     x = rng.standard_normal((e, 16, dims[0])).astype(np.float32)
@@ -175,7 +189,7 @@ def test_tensor_core_wrappers_refuse_what_they_cannot_take():
     tiles = tk._check_tiles(stack, None, cpu)  # packs when not given
     assert tiles.layout == tk.ChainLayout((24, 200, 36), False)
     with pytest.raises(ValueError):  # wider than the wgmma slots
-        tk._check_tiles(_stack((24, 248, 36), torch.float32), None, cpu)
+        tk._check_tiles(_stack((24, 264, 36), torch.float32), None, cpu)
     with pytest.raises(ValueError):  # tiles of another stack
         tk._check_tiles(_stack((24, 64, 36), torch.float32), tiles, cpu)
     with pytest.raises(ValueError):  # the bf16 layout of the same dims
