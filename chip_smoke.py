@@ -7,7 +7,8 @@ Builds the three CUDA kernels from ``mbrl_tpu_torch/csrc/`` (all on the tensor
 cores: K1 and K2 in ``tc_chain.cu``, K3 in ``ensemble_mlp.cu``, one nvcc each),
 holds each against its plain PyTorch version at the main path's shapes (f32 and
 bf16; K3 at 8,000 rows with a Gaussian and with a deterministic head, and at
-100,000 rows) and times both, then drives the port's
+100,000 rows; K2, mean path and samples, at the shapes of configs B and E, of
+MPPI and of each of iCEM's populations) and times both, then drives the port's
 entry points at full width (7-member GaussianMLP ensemble, 5 elites, 4x200
 silu; CEM pop 400 x 20 particles x horizon 30, 5 iterations) with random
 weights from a seed:
@@ -19,19 +20,34 @@ weights from a seed:
      random actions stand in for the SAC policy, which is not ported): K3,
      with the weights packed once per rollout
   D  config B with a deterministic head: the per-step rollout on K3
+  E  a whole PETS run, ``algorithms.pets.train`` on the port's continuous
+     cartpole at the published ``pets_cartpole`` values (E=7, 5 elites, 4x200
+     silu, f32; CEM 5 x 350 x 20 particles x horizon 15; 200 random steps,
+     retraining every 50 steps on the device), ``num_steps`` cut to
+     ``E_PLANNED_STEPS``: K2 at a 1,400-row shard, 5-wide input, real termination
+  T  training alone at PETS-HalfCheetah's shape (in 24, out 18, batch 32,
+     10,000 synthetic transitions): two epochs each of ``train_device`` and
+     the host-iterator ``train``; loss and gradient on the card against the CPU
+  MPPI (``pets_mppi_halfcheetah`` on B's model), iCEM (``pets_icem_cartpole``
+  on E's trained model) and ``act_batch`` (4 environments, config B): K2
 
 and checks that each config's launches went through its kernel, that the
 rollout on the card agrees with the plain CPU path on an identical-member
 model. Prints the card, a JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device, and on
-any failed check. Imports neither JAX nor the JAX package.
+any failed check. Imports neither JAX nor the JAX package, and needs neither
+``gymnasium`` nor ``pyyaml``.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import json
+import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +61,11 @@ BATCH = POP * PARTICLES
 # MBPO HalfCheetah: effective_model_rollouts_per_step 400 x freq_train_model 250
 # rows per imagined-rollout step (examples/conf/overrides/mbpo_halfcheetah.yaml)
 MBPO_ROWS, MBPO_STEPS = 100_000, 20
+# config E: planned steps of the PETS run (the published run has 5,000)
+E_PLANNED_STEPS = 300
+OBS_E, ACT_E, POP_E = 4, 1, 350
+MPPI_POP, ICEM_HORIZON = 350, 10
+T_ROWS = 10_000
 # published H100 SXM peaks (dense): TF32 and bf16 tensor cores, HBM3
 PEAK_TF32, PEAK_BF16, PEAK_BYTES = 495e12, 989e12, 3.35e12
 # elementwise tolerances (|kernel - plain| <= atol + rtol * |plain|):
@@ -175,6 +196,68 @@ def check_k3(K, x, stack, dt_name: str, what: str):
     }
 
 
+def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
+    """K2 on ``x``: its mean path against its plain version, its samples
+    against N(0,1), and its times and bound."""
+    out = stack.dims[-1] // 2
+    tol = TOL[("K2", dt_name)]
+    tiles = K.pack_chain(stack)  # the kernels' layout, packed once as the rollout does
+    got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=False, tiles=tiles)
+    ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out, sample=False)
+    err, ok = max_err(got, ref, tol)
+    check(ok, f"K2 {dt_name} ({what}, mean) disagrees with its plain version: max abs err {err}")
+    # sampled path: z = (draw - mean) / sigma must be standard normal
+    raw = K.fused_ensemble_mlp_plain(x, stack)
+    sigma = torch.exp(0.5 * K.bound_logvar(raw[..., out:], max_lv, min_lv))
+    draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=True, tiles=tiles)
+    z = ((draws - ref) / sigma).double().flatten()
+    n = z.numel()
+    zm, zv = float(z.mean()), float(z.var())
+    zk = float(((z - zm) ** 4).mean() / zv**2)
+    # five standard errors of each moment (the kurtosis': sqrt(24 / n))
+    check(abs(zm) < 5 / n**0.5 and abs(zv - 1) < 5 * (2 / n) ** 0.5
+          and abs(zk - 3) < max(0.1, 5 * (24 / n) ** 0.5),
+          f"K2 {dt_name} ({what}) samples are not N(0,1): mean {zm} var {zv} kurtosis {zk}")
+    e, rows, _ = x.shape
+    flops = 2.0 * e * rows * macs_per_row(stack.dims)
+    nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4 + 2 * out * 4
+    bms, bby = bound(flops, nbytes, stack.low_precision)
+
+    def launch():
+        return K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, tiles=tiles)
+
+    return {
+        "max_abs_err": err, "tol": tol, "rows": e * rows, "z_mean": zm, "z_var": zv,
+        "z_kurtosis": zk, "ms": time_graph_ms(launch, 20), "eager_ms": time_ms(launch, 20),
+        "plain_ms": time_ms(
+            lambda: K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out), 10),
+        "bound_ms": bms, "bound_by": bby,
+    }
+
+
+def icem_optimizer(device: str, population: int = 200, horizon: int = ICEM_HORIZON):
+    """iCEM at overrides/pets_icem_cartpole.yaml's values (5 iterations, 200
+    candidates decaying by 1.3, elite ratio 0.1, keep 0.3, colored noise 2,
+    horizon 10, sizes rounded to the 7 members)."""
+    from mbrl_tpu_torch.planning import ICEMOptimizer
+
+    lb, ub = -np.ones((horizon, ACT_E), np.float32), np.ones((horizon, ACT_E), np.float32)
+    return ICEMOptimizer(5, 0.1, population, population_decay_factor=1.3, colored_noise_exponent=2,
+                         lower_bound=lb, upper_bound=ub, keep_elite_frac=0.3, alpha=0.1,
+                         return_mean_elites=True, population_size_module=ENSEMBLE, device=device)
+
+
+def icem_evaluated(icem) -> list:
+    """Candidates iCEM scores in each iteration: the decayed population plus
+    the elites kept from the one before, and the mean at the last."""
+    sizes = icem.decay_population_sizes
+    return [n + icem.keep_elite_size for n in sizes[:-1]] + [sizes[-1] + 1]
+
+
+def icem_rows_per_member(icem) -> list:
+    return [n * PARTICLES // ELITES for n in icem_evaluated(icem)]
+
+
 def max_err(got: torch.Tensor, ref: torch.Tensor, tol: float):
     err = (got - ref).abs()
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * ref.abs()).all())
@@ -196,42 +279,36 @@ def kernel_checks():
         # K3 / K2 at config B/C shapes: E=5, S=1600, in=24, out=18
         stack, max_lv, min_lv = elite_stack(OBS_B + ACT, OBS_B, dtype, g)
         x = torch.randn((ELITES, shard, OBS_B + ACT), generator=g).to(dev)
-        flops = 2.0 * ELITES * shard * macs_per_row(stack.dims)
 
         results[("K3", dt_name)] = check_k3(K, x, stack, dt_name, "C8k")
         # K3 at config D's shape: the same rows into a deterministic head (18 columns)
         det, _, _ = elite_stack(OBS_B + ACT, OBS_B, dtype, g, deterministic=True)
         results[("K3@D", dt_name)] = check_k3(K, x, det, dt_name, "D")
 
-        tiles = K.pack_chain(stack)  # the kernels' layout, packed once as the rollout does
-        got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False,
-                                            tiles=tiles)
-        ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B, sample=False)
-        err, ok = max_err(got, ref, TOL[("K2", dt_name)])
-        check(ok, f"K2 {dt_name} (mean) disagrees with its plain version: max abs err {err}")
-        # sampled path: z = (draw - mean) / sigma must be standard normal
-        raw = K.fused_ensemble_mlp_plain(x, stack)
-        sigma = torch.exp(0.5 * K.bound_logvar(raw[..., OBS_B:], max_lv, min_lv))
-        draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=True,
-                                              tiles=tiles)
-        z = ((draws - ref) / sigma).double().flatten()
-        n = z.numel()
-        zm, zv = float(z.mean()), float(z.var())
-        zk = float(((z - zm) ** 4).mean() / zv**2)
-        check(abs(zm) < 5 / n**0.5 and abs(zv - 1) < 5 * (2 / n) ** 0.5 and abs(zk - 3) < 0.1,
-              f"K2 {dt_name} samples are not N(0,1): mean {zm} var {zv} kurtosis {zk}")
-        nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4 + 2 * OBS_B * 4
-        bms, bby = bound(flops, nbytes, bf)
-        results[("K2", dt_name)] = {
-            "max_abs_err": err, "tol": TOL[("K2", dt_name)], "z_mean": zm, "z_var": zv,
-            "z_kurtosis": zk,
-            "ms": time_graph_ms(
-                lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, tiles=tiles), 20),
-            "eager_ms": time_ms(
-                lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, tiles=tiles), 20),
-            "plain_ms": time_ms(
-                lambda: K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B), 10),
-            "bound_ms": bms, "bound_by": bby,
+        results[("K2", dt_name)] = check_k2(K, g, x, stack, max_lv, min_lv, dt_name, "B")
+        # MPPI's population on the same model: 350 x 20 / 5 = 1,400 rows
+        results[("K2@MPPI", dt_name)] = check_k2(K, g, x[:, :MPPI_POP * PARTICLES // ELITES].contiguous(),
+                                                 stack, max_lv, min_lv, dt_name, "MPPI")
+
+        # K2 at config E's shape (cartpole): E=5, S=350*20/5=1,400 rows (not a
+        # multiple of the 64-row tile), in 5, out 4; and at each row count of
+        # iCEM's decayed populations on the same model
+        stack_e, max_e, min_e = elite_stack(OBS_E + ACT_E, OBS_E, dtype, g)
+        xe = torch.randn((ELITES, POP_E * PARTICLES // ELITES, OBS_E + ACT_E), generator=g).to(dev)
+        results[("K2@E", dt_name)] = check_k2(K, g, xe, stack_e, max_e, min_e, dt_name, "E")
+        # one iCEM plan launches K2 `horizon` times at each of these row counts:
+        # the row of the kernels' line is the mean over them, the worst error
+        per_rows = {}
+        for rows_e in icem_rows_per_member(icem_optimizer("cuda")):
+            xe = torch.randn((ELITES, rows_e, OBS_E + ACT_E), generator=g).to(dev)
+            per_rows[rows_e] = check_k2(K, g, xe, stack_e, max_e, min_e, dt_name, f"iCEM, {rows_e} rows")
+        runs = list(per_rows.values())
+        results[("K2@iCEM", dt_name)] = {
+            "max_abs_err": max(r["max_abs_err"] for r in runs), "tol": runs[0]["tol"],
+            **{k: float(np.mean([r[k] for r in runs])) for k in ("ms", "eager_ms", "plain_ms", "bound_ms")},
+            "bound_by": runs[0]["bound_by"],
+            "rows_per_member": {n: {k: r[k] for k in ("max_abs_err", "ms", "bound_ms", "z_kurtosis")}
+                                for n, r in per_rows.items()},
         }
 
         # K1 at config A's shape: B=8000, H=30, obs 17, act 6, tile 64
@@ -466,39 +543,17 @@ def plan_config(name: str, device: str = "cuda"):
 
 
 def device_busy(name: str, acts: int = 2):
-    """Warm ``act``s of config A, B or D under ``torch.profiler``: the share of
-    their wall time in which the card ran anything (union of device
-    intervals), and the share in the port's own kernels. The profiler slows
-    the host, so these wall times are not the ``act`` times above."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Warm ``act``s of config A, B or D under ``torch.profiler`` (``profile_busy``)."""
     agent, obs_dim = make_agent(name)
     rng = np.random.default_rng(SEED)
     agent.act((0.1 * rng.standard_normal(obs_dim)).astype(np.float32))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(acts):
             agent.act((0.1 * rng.standard_normal(obs_dim)).astype(np.float32))
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(bool(spans), f"config {name}: the profiler saw no device activity")
-    busy, end = 0.0, -float("inf")
-    for s, e, _ in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    ours = sum(e - s for s, e, n in spans
-               if n.split("<")[0].split()[-1] in ("rollout_returns_tc_kernel", "gaussian_tc_kernel",
-                                                  "ensemble_mlp_tc_kernel"))
-    by_name = {}
-    for s, e, n in spans:
-        by_name[n[:48]] = by_name.get(n[:48], 0.0) + (e - s) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"acts": acts, "wall_ms": wall_us / 1e3, "device_busy_share": busy / wall_us,
-            "port_kernel_share": ours / wall_us, "device_ops": len(spans),
-            "top_device_ms": dict(top)}
+
+    return {"acts": acts, **profile_busy(run, ("rollout_returns_tc_kernel", "gaussian_tc_kernel",
+                                               "ensemble_mlp_tc_kernel"))}
 
 
 def run_steps(env, state, obs_dim: int, device: str, g: torch.Generator, rows: int, steps: int,
@@ -541,6 +596,462 @@ def rollout_config_c(device: str = "cuda"):
     g = torch.Generator().manual_seed(SEED + 2)
     env, state, obs_dim = build_config("A", device, g, dtype="float32")
     return run_steps(env, state, obs_dim, device, g, MBPO_ROWS, MBPO_STEPS, prepare=True)
+
+
+# --------------------------------------------------------------------------- #
+# Config E: a whole PETS run through algorithms.pets.train
+# --------------------------------------------------------------------------- #
+_CEM_E = {
+    "_target_": "mbrl_tpu_torch.planning.CEMOptimizer",
+    "num_iterations": 5, "elite_ratio": 0.1, "population_size": 350, "alpha": 0.1,
+    "lower_bound": "???", "upper_bound": "???", "return_mean_elites": True,
+    "clipped_normal": False,
+}
+# examples/conf/main.yaml with algorithm=pets, dynamics_model=gaussian_mlp_ensemble,
+# overrides=pets_cartpole, action_optimizer=cem, parallel=none, interpolations
+# resolved; tests/test_torch_config.py holds it equal to the loaded YAML tree
+# apart from overrides.num_steps
+CONFIG_E = {
+    "algorithm": {
+        "name": "pets",
+        "agent": {
+            "_target_": "mbrl_tpu_torch.planning.TrajectoryOptimizerAgent",
+            "action_lb": "???", "action_ub": "???", "planning_horizon": 15,
+            "optimizer": copy.deepcopy(_CEM_E), "replan_freq": 1, "verbose": False,
+        },
+        "normalize": True, "normalize_double_precision": True, "target_is_delta": True,
+        "initial_exploration_steps": 200, "freq_train_model": 50, "learned_rewards": False,
+        "num_particles": 20,
+    },
+    "dynamics_model": {
+        "_target_": "mbrl_tpu_torch.models.GaussianMLP",
+        "num_layers": 4, "in_size": "???", "out_size": "???", "ensemble_size": 7,
+        "hid_size": 200, "deterministic": False, "propagation_method": "random_model",
+        "learn_logvar_bounds": False, "activation": "silu",
+    },
+    "overrides": {
+        "env": "cartpole_continuous", "term_fn": "cartpole", "reward_fn": "cartpole",
+        "learned_rewards": False, "trial_length": 200, "num_steps": E_PLANNED_STEPS,
+        "num_elites": 5, "model_lr": 7.5e-4, "model_wd": 3e-5, "model_batch_size": 256,
+        "validation_ratio": 0, "freq_train_model": 50, "patience": 25,
+        "num_epochs_train_model": 25, "planning_horizon": 15, "cem_num_iters": 5,
+        "cem_elite_ratio": 0.1, "cem_population_size": 350, "cem_alpha": 0.1,
+        "cem_clipped_normal": False,
+    },
+    "action_optimizer": copy.deepcopy(_CEM_E),
+    "parallel": {"enable": False},
+    "seed": 0, "log_frequency_agent": 1000, "save_video": False, "debug_mode": False,
+    "experiment": "default", "root_dir": "./exp",
+}
+
+
+class RecordingCartPole:
+    """The port's continuous cartpole, keeping each step's action, each
+    episode's reward and, per step, the host time since the step or reset
+    before it returned. In ``pets.train`` that gap is the agent's ``act`` (which
+    returns a numpy action, so the card has finished) and, at a step that
+    retrains, the retraining before it."""
+
+    def __init__(self):
+        from mbrl_tpu_torch.envs.cartpole_continuous import CartPoleEnv
+
+        self.env = CartPoleEnv()
+        self.env.np_random = np.random.default_rng(SEED)
+        self.env.action_space.seed(SEED)
+        self.observation_space, self.action_space = self.env.observation_space, self.env.action_space
+        self.episode_rewards, self.actions, self.gap_ms = [], [], []
+
+    def reset(self, **kw):
+        self.episode_rewards.append(0.0)
+        out = self.env.reset(**kw)
+        self._returned = time.perf_counter()
+        return out
+
+    def step(self, action):
+        self.gap_ms.append((time.perf_counter() - self._returned) * 1e3)
+        self.actions.append(np.asarray(action, np.float64).reshape(-1))
+        out = self.env.step(action)
+        self.episode_rewards[-1] += out[1]
+        self._returned = time.perf_counter()
+        return out
+
+
+def read_csv(path) -> dict:
+    """Columns of a csv file that ``util.logger.Logger`` wrote, as float lists."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return {k: [float(r[k]) for r in rows] for k in rows[0]}
+
+
+def pets_config_e(device: str = "cuda", planned_steps: int = E_PLANNED_STEPS, config=None):
+    """``pets.train`` on the port's continuous cartpole with ``CONFIG_E``.
+    Returns the run's numbers, the model it trained (its wrapper, and the state
+    loaded from the ``model.pkl`` it wrote) and its work directory (the caller
+    removes it)."""
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_pets_")
+    try:
+        return _pets_config_e(device, planned_steps, config, work_dir)
+    except BaseException:
+        shutil.rmtree(work_dir, ignore_errors=True)
+        raise
+
+
+def _pets_config_e(device, asked, config, work_dir):
+    import contextlib
+    import io
+    from unittest import mock
+
+    from mbrl_tpu_torch.algorithms import pets
+    from mbrl_tpu_torch.config import Config
+    from mbrl_tpu_torch.envs import reward_fns, termination_fns
+    from mbrl_tpu_torch.util.replay_buffer import ReplayBuffer
+
+    cfg = Config(copy.deepcopy(CONFIG_E if config is None else config))
+    cfg.overrides["num_steps"] = asked
+    explore, freq = cfg.algorithm.initial_exploration_steps, cfg.algorithm.freq_train_model
+    env = RecordingCartPole()
+    # pets.train builds its model itself and returns the best reward only: keep
+    # the wrapper it builds (for `model.packs`); the rest is read from what the
+    # run writes. The logger's table of every epoch goes to a buffer, not stdout.
+    wrappers = []
+
+    def build_model(*a, **kw):
+        wrappers.append(create(*a, **kw))
+        return wrappers[-1]
+
+    create = pets.create_one_dim_tr_model
+    with mock.patch.object(pets, "create_one_dim_tr_model", build_model), \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        best = pets.train(env, termination_fns.cartpole, reward_fns.cartpole, cfg, silent=False,
+                          work_dir=work_dir, device=device)
+        total_s = time.perf_counter() - t0
+    (wrapper,) = wrappers
+
+    # pets.train ends at the first episode boundary at or after num_steps
+    planned_steps = len(env.actions) - explore
+    retrainings = -(-planned_steps // freq)
+    check(asked <= planned_steps < asked + cfg.overrides.trial_length,
+          f"config E: {planned_steps} planned steps for num_steps {asked}")
+    actions = np.stack(env.actions[explore:])
+    check(actions.shape == (planned_steps, ACT_E) and bool(np.isfinite(actions).all())
+          and bool((np.abs(actions) <= 1.0 + 1e-6).all()), "config E: action not finite or out of bounds")
+    # one fresh pack per retraining, made at the first plan after it
+    check(wrapper.model.packs == retrainings,
+          f"config E: weights packed {wrapper.model.packs} times for {retrainings} retrainings")
+
+    # what the run wrote loads again
+    work = pathlib.Path(work_dir)
+    check((work / "model.pkl").exists() and (work / "replay_buffer.npz").exists(),
+          "config E: model.pkl or replay_buffer.npz not written")
+    # the buffer's capacity is overrides.num_steps, so the cut run's ring wraps
+    buffer = ReplayBuffer(cfg.overrides.num_steps, (OBS_E,), (ACT_E,), obs_type=np.double,
+                          action_type=np.double, reward_type=np.double)
+    buffer.load(work)
+    # saved at the last retraining
+    saved_rows = explore + (retrainings - 1) * freq
+    check(buffer.num_stored == min(saved_rows, cfg.overrides.num_steps),
+          f"replay_buffer.npz: {buffer.num_stored} rows")
+    init = wrapper.init(torch.Generator().manual_seed(cfg.seed or 0))  # the run's initial weights
+    state = wrapper.load(init, work)
+    check(state["params"]["elite"].shape == (ELITES,) and
+          state["normalizer"].mean.dtype == torch.float64, "model.pkl: elites or normalizer lost")
+
+    # the retrainings, from the model_train.csv the run's logger wrote
+    log = read_csv(work / "model_train.csv")
+    check(bool(np.isfinite(log["model_loss"]).all() and np.isfinite(log["model_val_score"]).all()),
+          "config E: non-finite training loss or validation score")
+    iteration = np.asarray(log["train_iteration"], int)
+    check(sorted(set(iteration)) == list(range(retrainings)),
+          f"config E: retrainings logged {sorted(set(iteration))}, expected {retrainings}")
+    losses = [np.asarray(log["model_loss"])[iteration == i] for i in range(retrainings)]
+    scores = [np.asarray(log["model_val_score"])[iteration == i] for i in range(retrainings)]
+    epochs = len(iteration)
+    steps = int(sum(log["train_dataset_size"])) // cfg.overrides.model_batch_size
+    # it learned: on the rows the buffer holds, the saved model scores below the
+    # initial weights (both behind the saved normalizer)
+    rows = buffer.get_all().to(device)
+    with torch.no_grad():
+        score_init = float(wrapper.eval_score({**init, "normalizer": state["normalizer"]}, rows)[0].mean())
+        score_last = float(wrapper.eval_score(state, rows)[0].mean())
+    check(score_last < score_init, f"config E: the saved model's score {score_last} on the buffer "
+                                   f"is not below the initial weights' {score_init}")
+
+    # a step that retrains waits for the retraining (normalizer, sync, epochs,
+    # both files saved) and its act (which repacks; the first also warms up):
+    # the median act is taken off
+    gaps = np.asarray(env.gap_ms[explore:])
+    retrains = np.arange(planned_steps) % freq == 0
+    act_ms = gaps[~retrains]
+    retrain_ms = gaps[retrains] - float(np.median(act_ms))
+    explored = int(np.searchsorted(np.cumsum(env.episode_rewards), explore)) + 1
+    numbers = {
+        "num_steps": asked, "planned_steps": planned_steps, "published_num_steps": 5000,
+        "retrainings": retrainings,
+        "total_s": total_s, "best_episode_reward": float(best),
+        "exploration_episode_rewards": env.episode_rewards[:explored],
+        "planned_episode_rewards": env.episode_rewards[explored:],
+        "act_ms_median": float(np.median(act_ms)),
+        "act_ms_mean": float(np.mean(act_ms)),
+        "retrain_ms": retrain_ms.tolist(),
+        "retrain_rows": [min(explore + i * freq, cfg.overrides.num_steps) for i in range(retrainings)],
+        "epoch_ms_mean": float(retrain_ms.sum()) / epochs, "gradient_steps": steps,
+        "gradient_steps_per_s": steps / (float(retrain_ms.sum()) / 1e3),
+        "retrain_ms_per_env_step": float(retrain_ms.sum()) / planned_steps,
+        "score_on_buffer": {"initial_weights": score_init, "saved_model": score_last},
+        "first_scores": [float(scores[0][0]), float(scores[0].min())],
+        "last_scores": [float(scores[-1][0]), float(scores[-1].min())],
+        "first_losses": [float(losses[0][0]), float(losses[0][-1])],
+        "last_losses": [float(losses[-1][0]), float(losses[-1][-1])],
+    }
+    return numbers, wrapper, state, work_dir
+
+
+# --------------------------------------------------------------------------- #
+# Config T: training alone at PETS-HalfCheetah's shape
+# --------------------------------------------------------------------------- #
+def halfcheetah_training_setup(device: str, rows: int = T_ROWS):
+    """overrides/pets_halfcheetah.yaml's model (obs 18, 18 preprocessed, act 6, in 24,
+    out 18, no_delta_list [0], 7 members) with weights from ``SEED``, and
+    a synthetic buffer of ``rows`` transitions of a smooth random system."""
+    from mbrl_tpu_torch.envs.pets_halfcheetah import HalfCheetahEnv
+    from mbrl_tpu_torch.models import GaussianMLP, TransitionRewardModel
+    from mbrl_tpu_torch.util.replay_buffer import ReplayBuffer
+
+    model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, ENSEMBLE, HID, activation="silu",
+                        propagation_method="random_model", device=device)
+    wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
+                                    normalize_double_precision=True, learned_rewards=False,
+                                    obs_process_fn=HalfCheetahEnv.preprocess_fn,
+                                    no_delta_list=[0], num_elites=ELITES)
+    state = wrapper.init(torch.Generator().manual_seed(SEED + 20))
+    rng = np.random.default_rng(SEED + 21)
+    obs = rng.standard_normal((rows, OBS_B))
+    act = rng.uniform(-1, 1, (rows, ACT))
+    mix = rng.standard_normal((OBS_B + ACT, OBS_B)) / np.sqrt(OBS_B + ACT)
+    next_obs = obs + 0.1 * np.tanh(np.concatenate([obs, act], 1) @ mix) \
+        + 0.01 * rng.standard_normal((rows, OBS_B))
+    buffer = ReplayBuffer(rows, (OBS_B,), (ACT,), obs_type=np.double, action_type=np.double,
+                          reward_type=np.double, rng=np.random.default_rng(SEED + 22))
+    buffer.add_batch(obs, act, next_obs, next_obs[:, 0], np.zeros(rows, bool), np.zeros(rows, bool))
+    state = wrapper.update_normalizer_host(state, buffer.get_all())
+    return wrapper, state, buffer
+
+
+def fixed_batch_loss_and_grads(device: str, rows: int):
+    """Loss and gradients of one fixed bootstrapped batch (7 x 32 rows)."""
+    from mbrl_tpu_torch.models import ModelTrainer
+    from mbrl_tpu_torch.models.trainer import _Work
+
+    wrapper, state, buffer = halfcheetah_training_setup(device, rows)
+    idx = np.random.default_rng(SEED + 23).integers(0, rows, (ENSEMBLE, 32))
+    batch = buffer.get_all()[idx.reshape(-1)].map(
+        lambda x: x.reshape((ENSEMBLE, 32) + x.shape[1:])).to(device)
+    work = _Work(ModelTrainer(wrapper), state)
+    loss, _ = wrapper.loss(work.state(), batch)
+    loss.backward()
+    return float(loss.detach()), [leaf.grad.detach().cpu() for leaf in work.leaves]
+
+
+def profile_busy(run, kernels=()):
+    """``run()`` under ``torch.profiler``: the share of its wall time in which
+    the card ran anything (union of device intervals), and the share in the
+    kernels named. The profiler slows the host, so these wall times are not the
+    times reported elsewhere."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(spans), "the profiler saw no device activity")
+    busy, end = 0.0, -float("inf")
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    ours = sum(e - s for s, e, n in spans if n.split("<")[0].split()[-1] in kernels)
+    by_name = {}
+    for s, e, n in spans:
+        by_name[n[:48]] = by_name.get(n[:48], 0.0) + (e - s) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall_us / 1e3, "device_busy_share": busy / wall_us,
+            "port_kernel_share": ours / wall_us, "device_ops": len(spans),
+            "top_device_ms": dict(top)}
+
+
+def train_config_t(device: str = "cuda", rows: int = T_ROWS, profile: bool = True):
+    """Two epochs of ``train_device`` and two of the host-iterator ``train`` at
+    pets_halfcheetah.yaml's values (batch 32, validation_ratio 0.05, lr 2.8e-4,
+    wd 1e-4); on the card, the loss and the gradient of one fixed batch against
+    the CPU."""
+    from mbrl_tpu_torch.models import ModelTrainer
+    from mbrl_tpu_torch.models.trainer import _device_sizes
+    from mbrl_tpu_torch.util.common import get_basic_buffer_iterators
+    from mbrl_tpu_torch.util.device_buffer import DeviceTransitionDataset
+
+    out = {"rows": rows}
+    if device == "cuda":
+        loss_d, grads_d = fixed_batch_loss_and_grads("cuda", rows)
+        loss_c, grads_c = fixed_batch_loss_and_grads("cpu", rows)
+        # f32 on both sides (PyTorch's f32 products on the card are not TF32
+        # unless asked): they differ by summation order only
+        tol = 1e-4
+        worst = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads_d, grads_c))
+        check(abs(loss_d - loss_c) <= tol * abs(loss_c) and worst <= tol,
+              f"config T: card vs CPU loss {loss_d} vs {loss_c}, worst gradient error {worst} "
+              f"relative to the leaf's largest entry (tol {tol})")
+        out.update({"loss_card": loss_d, "loss_cpu": loss_c, "grad_max_rel_err": worst, "tol": tol})
+
+    wrapper, state, buffer = halfcheetah_training_setup(device, rows)
+    kw = dict(optim_lr=2.8e-4, weight_decay=1e-4)
+    dataset = DeviceTransitionDataset(OBS_B, ACT, device=device)
+    dataset.sync_from(buffer)
+    _, steps = _device_sizes(rows, dataset.capacity, 32, 0.05)
+
+    def timed(fn):
+        sync(device)
+        t0 = time.perf_counter()
+        result = fn()
+        sync(device)
+        return result, (time.perf_counter() - t0) * 1e3
+
+    trainer = ModelTrainer(wrapper, **kw)
+    (_, losses, scores), ms = timed(lambda: trainer.train_device(
+        state, dataset, batch_size=32, val_ratio=0.05, num_epochs=2, patience=2))
+    check(len(losses) == 2 and bool(np.isfinite(losses + scores).all()) and losses[1] < losses[0],
+          f"config T train_device: losses {losses} scores {scores} not finite and falling")
+    out["train_device"] = {"epoch_ms": ms / 2, "steps_per_epoch": steps,
+                           "steps_per_s": 2 * steps / (ms / 1e3), "losses": losses, "scores": scores}
+
+    train_it, val_it = get_basic_buffer_iterators(buffer, 32, 0.05, ensemble_size=ENSEMBLE,
+                                                  shuffle_each_epoch=True)
+    trainer = ModelTrainer(wrapper, **kw)
+    (_, losses, scores), ms = timed(lambda: trainer.train(
+        state, train_it, dataset_val=val_it, num_epochs=2, patience=2))
+    check(len(losses) == 2 and bool(np.isfinite(losses + scores).all()) and losses[1] < losses[0],
+          f"config T train: losses {losses} scores {scores} not finite and falling")
+    host_steps = -(-len(train_it) // 8) * 8
+    out["train_host"] = {"epoch_ms": ms / 2, "steps_per_epoch": host_steps,
+                         "steps_per_s": 2 * host_steps / (ms / 1e3), "losses": losses,
+                         "scores": scores}
+    if profile and device == "cuda":
+        trainer = ModelTrainer(wrapper, **kw)
+        out["train_device_profile"] = profile_busy(lambda: trainer.train_device(
+            state, dataset, batch_size=32, val_ratio=0.05, num_epochs=1, patience=1))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# MPPI, iCEM and act_batch on the kernels
+# --------------------------------------------------------------------------- #
+def timed_acts(agent, observations, device: str, lb, ub, what: str):
+    """One warm-up ``act`` and the rest timed; every action finite and in bounds."""
+    times = []
+    for obs in observations:
+        sync(device)
+        t0 = time.perf_counter()
+        action = agent.act(obs)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(np.isfinite(action).all() and (action >= lb - 1e-6).all()
+                   and (action <= ub + 1e-6).all()), f"{what}: action {action} not finite or out of bounds")
+    return times[1:]
+
+
+def plan_mppi(device: str = "cuda", population: int = MPPI_POP):
+    """MPPI at overrides/pets_mppi_halfcheetah.yaml's values (5 iterations x 350
+    candidates, gamma 0.9, sigma 1.0, beta 0.9, horizon 30) on config B's model."""
+    from mbrl_tpu_torch.planning import (
+        MPPIOptimizer, TrajectoryOptimizerAgent, create_trajectory_optim_agent_for_model,
+    )
+
+    env, state, obs_dim = build_config("B", device, torch.Generator().manual_seed(SEED + 1))
+    lb, ub = -np.ones(ACT, np.float32), np.ones(ACT, np.float32)
+    mppi = MPPIOptimizer(5, population, gamma=0.9, sigma=1.0, beta=0.9,
+                         lower_bound=np.tile(lb, (HORIZON, 1)), upper_bound=np.tile(ub, (HORIZON, 1)),
+                         device=device)
+    agent = TrajectoryOptimizerAgent(mppi, lb, ub, planning_horizon=HORIZON, seed=SEED)
+    agent = create_trajectory_optim_agent_for_model(env, agent, num_particles=PARTICLES)
+    agent.set_eval_state(state)
+    rng = np.random.default_rng(SEED)
+    means = []
+    orig = mppi.optimize
+
+    def spy(obj_fun, x0, generator, opt_state, *a, **kw):
+        means.append(opt_state.clone())
+        sol, new = orig(obj_fun, x0, generator, opt_state, *a, **kw)
+        means.append(new.clone())
+        return sol, new
+
+    agent.optimizer.optimizer.optimize = spy
+    times = timed_acts(agent, [(0.1 * rng.standard_normal(obs_dim)).astype(np.float32)
+                               for _ in range(3)], device, lb, ub, "MPPI")
+    # the mean handed to a call is the one the call before returned (optimize
+    # shifts it by one step itself; the trajectory optimizer must not)
+    check(torch.equal(means[2], means[1]) and torch.equal(means[4], means[3]),
+          "MPPI: the persistent mean was changed between calls")
+    agent.optimizer.optimizer.refinements = 0
+    shifted, _ = orig(None, None, agent._generator, means[5])
+    check(torch.equal(shifted[:-1], means[5][1:]) and torch.equal(shifted[-1], means[5][-1]),
+          "MPPI: optimize does not shift its mean by one step")
+    return times
+
+
+def plan_icem(wrapper, state, device: str = "cuda", population: int = 200):
+    """iCEM (``icem_optimizer``) on config E's model."""
+    from mbrl_tpu_torch.envs import reward_fns, termination_fns
+    from mbrl_tpu_torch.models import ModelEnv
+    from mbrl_tpu_torch.planning import (
+        TrajectoryOptimizerAgent, create_trajectory_optim_agent_for_model,
+    )
+
+    horizon = ICEM_HORIZON
+    lb, ub = -np.ones(ACT_E, np.float32), np.ones(ACT_E, np.float32)
+    icem = icem_optimizer(device, population)
+    env = ModelEnv(wrapper, termination_fns.cartpole, reward_fns.cartpole)
+    agent = TrajectoryOptimizerAgent(icem, lb, ub, planning_horizon=horizon, seed=SEED)
+    agent = create_trajectory_optim_agent_for_model(env, agent, num_particles=PARTICLES)
+    agent.set_eval_state(state)
+    rng = np.random.default_rng(SEED)
+    sizes = []
+    times = timed_acts(agent, [rng.uniform(-0.05, 0.05, OBS_E).astype(np.float32) for _ in range(3)],
+                       device, lb, ub, "iCEM")
+    agent.plan(np.zeros(OBS_E, np.float32),
+               optimizer_callback=lambda pop, vals, it: sizes.append(int(pop.shape[0])))
+    want = icem_evaluated(icem)
+    check(sizes == want, f"iCEM: population sizes {sizes}, expected {want}")
+    return times, {"decay_population_sizes": icem.decay_population_sizes,
+                   "keep_elite_size": icem.keep_elite_size, "evaluated": sizes,
+                   "rows_per_member": icem_rows_per_member(icem)}, horizon
+
+
+def act_batch_config_b(device: str = "cuda", workers: int = 4):
+    """``act_batch`` with ``workers`` observations at config B: one plan per
+    environment, each with its own warm start and cache; ``reset_mask`` resets one."""
+    agent, obs_dim = make_agent("B", device)
+    rng = np.random.default_rng(SEED)
+    obs = (0.1 * rng.standard_normal((workers, obs_dim))).astype(np.float32)
+    times = []
+    for mask in (None, None, np.arange(workers) == 1):
+        sync(device)
+        t0 = time.perf_counter()
+        actions = agent.act_batch(obs, reset_mask=mask)
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(actions.shape == (workers, ACT) and bool(np.isfinite(actions).all())
+              and bool((np.abs(actions) <= 1 + 1e-6).all()), f"act_batch: bad actions {actions}")
+        planners = agent._batch_state["planners"]
+        if mask is None:
+            warm = [p.previous_solution.clone() for p in planners]
+    check(len(planners) == workers and len({id(p) for p in planners}) == workers
+          and not torch.equal(warm[0], warm[1]), "act_batch: the environments share a warm start")
+    return times
 
 
 def main() -> int:
@@ -602,19 +1113,52 @@ def main() -> int:
     profiles = {name: device_busy(name) for name in ("A", "B", "D")}
     print("device profile: " + json.dumps(profiles), flush=True)
 
+    # config E: the PETS loop. K2 alone, 5 iterations x 15 steps per planned step
+    k2 = "fused_ensemble_mlp_gaussian"
+    only_k2 = lambda n: {"fused_rollout_returns": 0, k2: n, "fused_ensemble_mlp": 0}
+    print(f"config E: num_steps cut from 5000 to {E_PLANNED_STEPS} planned steps after "
+          f"{CONFIG_E['algorithm']['initial_exploration_steps']} of random exploration (the run "
+          "ends at the first episode boundary after that)", flush=True)
+    (pets_numbers, wrapper_e, state_e, work_dir), counts_e = counted(pets_config_e)
+    try:
+        print("config E pets.train: " + json.dumps(pets_numbers) + f"  launches {counts_e}", flush=True)
+        want_e = only_k2(pets_numbers["planned_steps"] * 5 * 15)
+        check(counts_e == want_e, f"config E: expected launches {want_e}, got {counts_e}")
+        train_t = train_config_t()
+        print("config T training: " + json.dumps(train_t), flush=True)
+        times_mppi, counts_mppi = counted(plan_mppi)
+        print(f"MPPI act ms: {times_mppi}  launches {counts_mppi}", flush=True)
+        check(counts_mppi == only_k2(3 * 5 * HORIZON),
+              f"MPPI: expected launches {only_k2(3 * 5 * HORIZON)}, got {counts_mppi}")
+        (times_icem, icem_sizes, icem_h), counts_icem = counted(lambda: plan_icem(wrapper_e, state_e))
+        print(f"iCEM act ms: {times_icem}  populations {json.dumps(icem_sizes)}  "
+              f"launches {counts_icem}", flush=True)
+        check(counts_icem == only_k2(4 * 5 * icem_h),  # three acts and one plan
+              f"iCEM: expected launches {only_k2(4 * 5 * icem_h)}, got {counts_icem}")
+        times_batch, counts_batch = counted(act_batch_config_b)
+        print(f"act_batch (4 environments, config B) ms: {times_batch}  launches {counts_batch}",
+              flush=True)
+        check(counts_batch == only_k2(3 * 4 * 5 * HORIZON),
+              f"act_batch: expected launches {only_k2(3 * 4 * 5 * HORIZON)}, got {counts_batch}")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+
     # K3 three times, each row checked and timed at the shape that its launches
     # had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout steps
     k3 = "fused_ensemble_mlp"
     rows = {  # row: (wrapper, the main path's dtype, its launches there)
         "K1": ("fused_rollout_returns", "bf16", counts_a["fused_rollout_returns"]),
-        "K2": ("fused_ensemble_mlp_gaussian", "f32", counts_b["fused_ensemble_mlp_gaussian"]),
+        "K2": (k2, "f32", counts_b[k2]),
+        "K2@E": (k2, "f32", counts_e[k2]),
+        "K2@MPPI": (k2, "f32", counts_mppi[k2]),
+        "K2@iCEM": (k2, "f32", counts_icem[k2]),
         "K3": (k3, "f32", counts_c8[k3]),
         "K3@C100k": (k3, "f32", counts_c100[k3]),
         "K3@D": (k3, "f32", counts_d[k3]),
     }
     source = {"K1": "mbrl_tpu_torch/csrc/tc_chain.cu", "K2": "mbrl_tpu_torch/csrc/tc_chain.cu",
               "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
-    stated = ("tol", "rows", "blocks")  # not measured: printed with the per-dtype rows above
+    stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
     line = []
     for k, (wrapper, dtype, launches) in rows.items():
         r = results[(k, dtype)]
@@ -639,7 +1183,9 @@ def main() -> int:
             "other_dtype": {"dtype": other, **{key: v for key, v in results[(k, other)].items()
                                                if key not in stated}},
         })
-    print(json.dumps({"act_ms": {"A": times_a, "B": times_b, "D": times_d},
+    print(json.dumps({"act_ms": {"A": times_a, "B": times_b, "D": times_d, "mppi": times_mppi,
+                                 "icem": times_icem, "act_batch": times_batch,
+                                 "E_median": pets_numbers["act_ms_median"]},
                       "step_ms": {"C8k": times_c8, "C100k": times_c100}, "build_s": build_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)

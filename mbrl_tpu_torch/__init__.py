@@ -6,9 +6,11 @@ defaults to ``"cuda"``; with no GPU present that default raises (see
 :func:`mbrl_tpu_torch.device.resolve_device`). Pass ``device="cpu"`` to run the
 plain PyTorch versions of the kernels on the CPU.
 
-Slice 1 covers PETS planning: ``TrajectoryOptimizerAgent`` with CEM →
-``ModelEnv`` → shard-space fast rollout → ``GaussianMLP`` ensemble, with the
-three rollout kernels hand-written in CUDA (``csrc/ensemble_mlp.cu``).
+What is ported is the PETS loop: ``algorithms.pets.train`` collects with a
+``TrajectoryOptimizerAgent`` (CEM, MPPI or iCEM) that plans through
+``ModelEnv`` → shard-space fast rollout → ``GaussianMLP`` ensemble, on the three
+rollout kernels hand-written in CUDA (``csrc/``), and refits the ensemble with
+``ModelTrainer`` from a ``ReplayBuffer`` or its device mirror.
 """
 from mbrl_tpu_torch.device import resolve_device
 

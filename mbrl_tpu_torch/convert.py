@@ -64,9 +64,13 @@ def convert_state(
     normalizer: Optional[NormalizerState] = None
     if state.get("normalizer") is not None:
         n = state["normalizer"]
+        # float64 statistics (PETS' normalize_double_precision) stay float64
+        double = np.asarray(_stat(n, "mean")).dtype == np.float64
+        sdt = torch.float64 if double else torch.float32
         normalizer = NormalizerState(
-            mean=_tensor(_stat(n, "mean"), dev),
-            std=_tensor(_stat(n, "std"), dev),
+            mean=_tensor(_stat(n, "mean"), dev, sdt),
+            std=_tensor(_stat(n, "std"), dev, sdt),
+            eps=1e-12 if double else 1e-5,
         )
     return {
         "params": convert_params(state["params"], dev, compute_dtype),

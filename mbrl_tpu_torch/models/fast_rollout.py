@@ -53,18 +53,6 @@ def supports_fast_rollout(wrapper, state: Dict[str, Any], batch: int) -> bool:
     return model.ensemble_size > 1 and batch % num_used == 0
 
 
-def _fold_normalizer(wrapper, state, w0: torch.Tensor, b0: torch.Tensor):
-    """Fold (x - mu) / sd into the first layer: exact algebraic rewrite."""
-    if not wrapper.normalize or state.get("normalizer") is None:
-        return w0, b0
-    stats = state["normalizer"]
-    mu = stats.mean.reshape(-1).float()
-    sd = stats.std.reshape(-1).float()
-    w0f = w0 / sd[None, :, None]
-    b0f = b0 - torch.einsum("i,eio->eo", mu / sd, w0)[:, None, :]
-    return w0f, b0f
-
-
 def evaluate_action_sequences_sharded(
     wrapper,
     state: Dict[str, Any],
@@ -78,7 +66,11 @@ def evaluate_action_sequences_sharded(
     """Expected return per candidate sequence, (P,). See module docstring."""
     model = wrapper.model
     dev = action_sequences.device
-    p = model._elite_view(state["params"])
+    # weight stack: normalizer folded into layer 0, cast once to compute_dtype,
+    # with the kernels' own layout of it on the card; packed once per model state
+    stats = state.get("normalizer") if wrapper.normalize else None
+    cached = model.packed(state["params"], None if stats is None else (stats.mean, stats.std))
+    p, stack, tiles = cached.view, cached.stack, cached.tiles
     num_used = p["head"]["w"].shape[0]
     population, horizon, act_dim = action_sequences.shape
     batch = population * num_particles
@@ -89,16 +81,6 @@ def evaluate_action_sequences_sharded(
     fixed = model.propagation_method == "fixed_model"
     rotate = model.rollout_shuffle == "rotate"
 
-    # weight stack: normalizer folded into layer 0, cast once to compute_dtype
-    layer_ws = [l["w"] for l in p["layers"]]
-    layer_bs = [l["b"] for l in p["layers"]]
-    layer_ws[0], layer_bs[0] = _fold_normalizer(wrapper, state, layer_ws[0], layer_bs[0])
-    stack = kernels.pack_mlp(
-        layer_ws, layer_bs, p["head"]["w"], p["head"]["b"], model.activation_name,
-        dtype=model.compute_dtype,
-    )
-    # the kernels' own layout of the same stack, packed once per rollout for the card
-    tiles = kernels.pack_chain(stack) if dev.type == "cuda" else None
     max_lv = p["max_logvar"].float().contiguous() if stochastic else None
     min_lv = p["min_logvar"].float().contiguous() if stochastic else None
 

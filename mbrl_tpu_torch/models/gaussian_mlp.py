@@ -12,8 +12,10 @@ forward ``_forward_sharded`` goes through kernel K3
 (:func:`mbrl_tpu_torch.ops.kernels.fused_ensemble_mlp`), which on the card
 takes layers up to 256 wide and raises on a wider model. The elite view and its
 packed weights are kept per model state (:meth:`GaussianMLP.packed`), so a
-rollout of steps packs once. ``loss`` and ``eval_score`` come with the training
-slice.
+rollout of steps, and every plan between two retrainings, packs once.
+
+``loss`` and ``eval_score`` differentiate ``forward`` with ``torch.autograd``;
+the trainable leaves are every float leaf but ``frozen_param_keys``.
 """
 from __future__ import annotations
 
@@ -30,11 +32,23 @@ Params = Dict[str, Any]
 
 _ACTIVATIONS = kernels.ACTIVATIONS
 
+LOGVAR_BOUND_WEIGHT = 0.01  # weight of the max/min logvar regularizer
+
 
 def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[str(dtype)]
+
+
+def fold_input_affine(mean: torch.Tensor, std: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor):
+    """Fold ``(x - mean) / std`` into a first layer ``(w0, b0)``: an exact
+    algebraic rewrite, in float32 whatever the dtype of ``mean`` and ``std``."""
+    mu = mean.reshape(-1).float()
+    sd = std.reshape(-1).float()
+    w0f = w0 / sd[None, :, None]
+    b0f = b0 - torch.einsum("i,eio->eo", mu / sd, w0)[:, None, :]
+    return w0f, b0f
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +86,17 @@ class GaussianMLP:
         hid_size: int = 200,
         deterministic: bool = False,
         propagation_method: Optional[str] = None,
+        learn_logvar_bounds: bool = False,
         activation: str = "relu",
         compute_dtype: Union[str, torch.dtype] = torch.float32,
+        use_pallas: bool = False,
+        pallas_tile: int = 512,
         rollout_shuffle: str = "sort",
         device: DeviceLike = "cuda",
     ):
+        # `use_pallas`/`pallas_tile` select the JAX package's TPU kernels; they
+        # are accepted so that its configs load, and ignored: on a CUDA device
+        # the port always takes its kernels
         if rollout_shuffle not in ("sort", "rotate"):
             raise ValueError(
                 f"rollout_shuffle must be 'sort' or 'rotate', got {rollout_shuffle!r}"
@@ -93,11 +113,17 @@ class GaussianMLP:
         self.hid_size = hid_size
         self.deterministic = deterministic
         self.propagation_method = propagation_method
+        self.learn_logvar_bounds = learn_logvar_bounds
+        # params left out of gradient updates
+        self.frozen_param_keys = (
+            () if (deterministic or learn_logvar_bounds) else ("min_logvar", "max_logvar")
+        )
         self.activation_name = activation
         self.activation = _ACTIVATIONS[activation]
         self.compute_dtype = as_dtype(compute_dtype)
         self.rollout_shuffle = rollout_shuffle
-        self._packed: Optional[_Packed] = None  # one entry: the last params packed
+        # the last params packed: one entry as they are, one with an input transform folded in
+        self._packed: Dict[bool, _Packed] = {}
         self.packs = 0  # times `packed` had to pack anew
 
     # ------------------------------------------------------------------ #
@@ -177,29 +203,45 @@ class GaussianMLP:
             dtype=self.compute_dtype,
         )
 
-    def packed(self, params: Params) -> _Packed:
+    def packed(
+        self, params: Params, input_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    ) -> _Packed:
         """The elite view of ``params`` with its packed weight stack and, on
-        the card, the kernels' tiles. Kept for as long as ``params`` holds the
-        same tensors, unchanged (identity and in-place version of every
-        leaf) and the model the same dtype and activation, so the steps of a
-        rollout pack once; ``set_elite``, new weights or an in-place update
-        pack anew."""
+        the card, the kernels' tiles. With ``input_affine = (mean, std)``, the
+        caller's input transform ``(x - mean) / std`` is folded into the first
+        layer, an exact algebraic rewrite, and the stack takes raw inputs. Kept
+        for as long as ``params`` (and the transform) hold the same tensors,
+        unchanged (identity and in-place version of every leaf) and the model
+        the same dtype and activation, so the steps of a rollout and the plans
+        between two retrainings pack once; ``set_elite``, new weights, a new
+        transform or an in-place update pack anew."""
         leaves = [params["elite"], params["head"]["w"], params["head"]["b"]]
         for layer in params["layers"]:
             leaves += [layer["w"], layer["b"]]
         if not self.deterministic:
             leaves += [params["min_logvar"], params["max_logvar"]]
+        folded = input_affine is not None
+        if folded:
+            leaves += list(input_affine)
         key = (self.compute_dtype, self.activation_name, tuple(t._version for t in leaves))
-        hit = self._packed
+        hit = self._packed.get(folded)
         if (hit is not None and hit.key == key and len(hit.leaves) == len(leaves)
                 and all(a is b for a, b in zip(hit.leaves, leaves))):
             return hit
         view = self._elite_view(params)
-        stack = self.pack(view)
+        if folded:
+            w0, b0 = fold_input_affine(
+                *input_affine, view["layers"][0]["w"].float(), view["layers"][0]["b"]
+            )
+            first = {"w": w0, "b": b0}
+            stack = self.pack({**view, "layers": [first] + list(view["layers"][1:])})
+        else:
+            stack = self.pack(view)
         tiles = kernels.pack_chain(stack) if stack.ws.device.type == "cuda" else None
-        self._packed = _Packed(key, tuple(leaves), view, stack, tiles)
+        entry = _Packed(key, tuple(leaves), view, stack, tiles)
+        self._packed[folded] = entry
         self.packs += 1
-        return self._packed
+        return entry
 
     # ------------------------------------------------------------------ #
     # Forward
@@ -305,6 +347,40 @@ class GaussianMLP:
         m = torch.gather(mean, 0, gather)[0]
         lv = None if logvar is None else torch.gather(logvar, 0, gather)[0]
         return m, lv
+
+    # ------------------------------------------------------------------ #
+    # Losses
+    # ------------------------------------------------------------------ #
+    def loss(
+        self, params: Params, model_in: torch.Tensor, target: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Training loss over ``(E, B, in)/(E, B, out)`` (or 2-D, auto-lifted).
+
+        Probabilistic: per-member Gaussian NLL (mean over batch and output dim,
+        summed over members) + logvar-bound regularizer. Deterministic: summed
+        squared error."""
+        if model_in.ndim == 2:
+            model_in = model_in[None]
+            target = target[None]
+        if target.shape[0] != self.ensemble_size:
+            target = target.expand((self.ensemble_size,) + tuple(target.shape[1:]))
+        mean, logvar = self.forward(params, model_in)
+        if self.deterministic:
+            return torch.square(mean - target).sum(), {}
+        nll_elem = torch.square(mean - target) * torch.exp(-logvar) + logvar
+        nll = nll_elem.mean(dim=(1, 2)).sum()
+        nll = nll + LOGVAR_BOUND_WEIGHT * (
+            params["max_logvar"].sum() - params["min_logvar"].sum()
+        )
+        return nll, {}
+
+    def eval_score(
+        self, params: Params, model_in: torch.Tensor, target: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Per-member squared error on un-bootstrapped data: ``(E, B, out)``."""
+        with torch.no_grad():
+            mean, _ = self.forward(params, model_in)
+            return torch.square(mean - target.expand_as(mean)), {}
 
     # ------------------------------------------------------------------ #
     # Simulation contract (used via TransitionRewardModel by ModelEnv)

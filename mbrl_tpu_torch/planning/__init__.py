@@ -2,6 +2,8 @@
 from mbrl_tpu_torch.planning.core import Agent, RandomAgent
 from mbrl_tpu_torch.planning.trajectory_opt import (
     CEMOptimizer,
+    ICEMOptimizer,
+    MPPIOptimizer,
     Optimizer,
     TrajectoryOptimizer,
     TrajectoryOptimizerAgent,
@@ -11,6 +13,8 @@ from mbrl_tpu_torch.planning.trajectory_opt import (
 __all__ = [
     "Agent",
     "CEMOptimizer",
+    "ICEMOptimizer",
+    "MPPIOptimizer",
     "Optimizer",
     "RandomAgent",
     "TrajectoryOptimizer",

@@ -26,6 +26,7 @@ from mbrl_tpu_torch.envs import reward_fns, termination_fns
 from mbrl_tpu_torch.envs.pets_halfcheetah import HalfCheetahEnv
 from mbrl_tpu_torch.models import GaussianMLP, ModelEnv, TransitionRewardModel
 from mbrl_tpu_torch.models import fast_rollout
+from mbrl_tpu_torch.models.gaussian_mlp import fold_input_affine
 from mbrl_tpu_torch.ops import kernels
 
 E, ELITES, HID, ACT = 3, 2, 16, 2
@@ -218,14 +219,9 @@ def test_fold_normalizer_exact():
     mu = torch.from_numpy(rng.standard_normal((1, 7)).astype(np.float32))
     sd = torch.from_numpy((np.abs(rng.standard_normal((1, 7))) + 0.5).astype(np.float32))
 
-    class Stats:
-        mean = mu
-        std = sd
-
-    class W:
-        normalize = True
-
-    w0f, b0f = fast_rollout._fold_normalizer(W(), {"normalizer": Stats()}, w0, b0)
+    # float64 statistics fold into a float32 layer
+    w0f, b0f = fold_input_affine(mu.double(), sd.double(), w0, b0)
+    assert w0f.dtype == torch.float32 and b0f.dtype == torch.float32
     direct = torch.bmm((x - mu) / sd, w0) + b0
     folded = torch.bmm(x, w0f) + b0f
     torch.testing.assert_close(folded, direct, atol=1e-4, rtol=1e-4)

@@ -36,7 +36,7 @@ def test_port_imports_neither_jax_nor_mbrl_tpu():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n) >= 15
+    assert int(n) >= 35
     assert bad == "[]", bad
 
 
@@ -50,7 +50,76 @@ def test_no_import_statement_names_jax_or_mbrl_tpu(path):
             names = [node.module]
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "mbrl_tpu"), (path, name)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "mbrl_tpu"), (path, name)
+
+
+def _chip_smoke_imports():
+    """Every module of the port that chip_smoke.py imports, anywhere in the file."""
+    mods = set()
+    for node in ast.walk(ast.parse((REPO / "chip_smoke.py").read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("mbrl_tpu_torch"):
+            mods.add(node.module)
+            mods.update(f"{node.module}.{a.name}" for a in node.names)
+        elif isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names if a.name.startswith("mbrl_tpu_torch"))
+    return sorted(mods)
+
+
+def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
+    """The card's machine has neither ``gymnasium`` nor ``pyyaml``: with both
+    (and JAX and the JAX package) made unimportable, everything chip_smoke.py
+    imports still imports, a ``Config`` is built from its dict, and the model,
+    the agent and the cartpole of config E are made from it."""
+    mods = _chip_smoke_imports()
+    assert "mbrl_tpu_torch.algorithms.pets" in mods or "mbrl_tpu_torch.algorithms" in mods
+    code = (
+        "import sys, importlib, importlib.abc\n"
+        "BLOCKED = ('gymnasium', 'gym', 'yaml', 'jax', 'jaxlib', 'flax', 'optax', 'mbrl_tpu')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ModuleNotFoundError(f'{name} is blocked in this test', name=name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import chip_smoke\n"
+        f"mods = {mods!r}\n"
+        "count = 0\n"
+        "for m in mods:\n"
+        "    try:\n"
+        "        importlib.import_module(m); count += 1\n"
+        "    except ModuleNotFoundError as e:\n"
+        "        if e.name in BLOCKED or (e.name or '').split('.')[0] in BLOCKED: raise\n"
+        "        # `from package import name` where name is a class or function\n"
+        "        parent, _, attr = m.rpartition('.')\n"
+        "        getattr(importlib.import_module(parent), attr)\n"
+        "import copy\n"
+        "from mbrl_tpu_torch.config import Config, complete_agent_cfg, create_one_dim_tr_model, instantiate\n"
+        "from mbrl_tpu_torch.envs.cartpole_continuous import CartPoleEnv\n"
+        "cfg = Config(copy.deepcopy(chip_smoke.CONFIG_E))\n"
+        "env = CartPoleEnv()\n"
+        "model = create_one_dim_tr_model(cfg, env.observation_space.shape, env.action_space.shape, device='cpu')\n"
+        "agent = instantiate(complete_agent_cfg(env, cfg.algorithm.agent, device='cpu'), seed=1)\n"
+        "obs, _ = env.reset(seed=0); env.step(env.action_space.sample())\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
+        "print(count, len(model), type(agent).__name__); print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    summary, bad = out.stdout.strip().splitlines()[-2:]
+    count, members, agent = summary.split()
+    assert int(count) >= 12 and members == "7" and agent == "TrajectoryOptimizerAgent"
+    assert bad == "[]", bad
+
+
+def test_yaml_is_imported_only_where_yaml_text_is_parsed():
+    """``import yaml`` sits inside functions of config/engine.py, never at the
+    top of a module of the port."""
+    for path in PORT_FILES:
+        for node in ast.parse(path.read_text()).body:
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            for name in names:
+                assert name.split(".")[0] not in ("yaml", "gymnasium", "optax"), (path, name)
 
 
 def _skip_on_a_card():
