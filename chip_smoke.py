@@ -3,22 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``mbrl_tpu_torch/csrc/`` (all on the tensor
-cores: K1 and K2 in ``tc_chain.cu``, K3 in ``ensemble_mlp.cu``, one nvcc each),
-holds each against its plain PyTorch version at the main path's shapes (f32 and
-bf16; K3 at 8,000 rows with a Gaussian and with a deterministic head, and at
-100,000 rows; K2, mean path and samples, at the shapes of configs B and E, of
-MPPI and of each of iCEM's populations) and times both, then drives the port's
-entry points at full width (7-member GaussianMLP ensemble, 5 elites, 4x200
-silu; CEM pop 400 x 20 particles x horizon 30, 5 iterations) with random
-weights from a seed:
+Builds the CUDA kernels from ``mbrl_tpu_torch/csrc/`` (one nvcc per source, all
+at once): K1, K2 and K3 on the tensor-core chain (``tc_chain.cu``,
+``ensemble_mlp.cu``) and on the wide route (``wide_chain.cu``). Holds each
+against its plain PyTorch version at the main paths' shapes (f32 and bf16; K3
+at 8,000 rows with a Gaussian and with a deterministic head, at 100,000 rows
+and at config M's 80,000; K2, mean path and samples, at the shapes of configs
+B and E, of MPPI and of each of iCEM's populations; every activation at 200
+and 300 columns; widths 256 to 1024 and a 12-product chain; the wide route
+timed at 512 columns) and times both, then drives the port's entry points at
+full width (7-member GaussianMLP ensemble, 5 elites, 4x200 silu; CEM pop 400 x
+20 particles x horizon 30, 5 iterations) with random weights from a seed:
 
   A  the bench shape (learned rewards, rotate, bf16): whole-horizon kernel K1
   B  the PETS-HalfCheetah config (preprocess, analytic reward, sort, f32): K2
   C  ModelEnv.step (TS1): 5 steps on 8,000 particles, and a 20-step rollout of
-     100,000 rows, the batch of MBPO-HalfCheetah's imagined rollouts (uniform
-     random actions stand in for the SAC policy, which is not ported): K3,
-     with the weights packed once per rollout
+     100,000 rows, the batch of MBPO-HalfCheetah's imagined rollouts, with
+     uniform random actions (config M-HC runs the SAC policy at that batch):
+     K3, with the weights packed once per rollout
   D  config B with a deterministic head: the per-step rollout on K3
   E  a whole PETS run, ``algorithms.pets.train`` on the port's continuous
      cartpole at the published ``pets_cartpole`` values (E=7, 5 elites, 4x200
@@ -30,6 +32,21 @@ weights from a seed:
      the host-iterator ``train``; loss and gradient on the card against the CPU
   MPPI (``pets_mppi_halfcheetah`` on B's model), iCEM (``pets_icem_cartpole``
   on E's trained model) and ``act_batch`` (4 environments, config B): K2
+  W  a 512-wide model: one ``act`` of A (K1) and of B (K2) and
+     ``GaussianMLP._forward_sharded`` (K3) against the CPU, all on the wide route
+  M  a whole MBPO run, ``algorithms.mbpo.train`` on the port's cartpole
+     (``util.env.make_env``: TimeLimit 200) at the published ``mbpo_cartpole``
+     values (E=7, 5 elites, 4x200 silu, f32, double normalizer; 5,000 steps of
+     exploration by the SAC agent; 80,000 imagined rows a retraining, rollout
+     length 1; SAC 256 wide, batch 256, 20 updates a step, target interval 4).
+     The cuts: ``num_steps`` 5,000 -> ``M_NUM_STEPS`` (two epochs: 2
+     retrainings, 2 evaluations, ~4,000 SAC updates), and
+     ``algorithm.dataset_size`` set to 5,000 (the published ``num_steps``) so
+     that the replay buffer keeps its published size. K3 at 80,000 rows, in 5
+  M-HC  MBPO-HalfCheetah's shape without the environment: a seeded model (in 23,
+     out 18, 4x200) and SAC (512 wide, batch 256): imagined rollouts of
+     100,000 rows (length 1, then 5), three bundles of 10 SAC updates, and
+     one SAC update on the card against the CPU
 
 and checks that each config's launches went through its kernel, that the
 rollout on the card agrees with the plain CPU path on an identical-member
@@ -66,6 +83,12 @@ E_PLANNED_STEPS = 300
 OBS_E, ACT_E, POP_E = 4, 1, 350
 MPPI_POP, ICEM_HORIZON = 350, 10
 T_ROWS = 10_000
+# the width sweep: two hidden layers of each width (256 is the chain's widest,
+# the others take the wide route), then a chain of DEEP_PRODUCTS products;
+# the wide route is timed at WIDE_HID columns
+SWEEP_WIDTHS = (256, 264, 300, 512, 1024)
+DEEP_PRODUCTS = 12
+WIDE_HID = 512
 # published H100 SXM peaks (dense): TF32 and bf16 tensor cores, HBM3
 PEAK_TF32, PEAK_BF16, PEAK_BYTES = 495e12, 989e12, 3.35e12
 # elementwise tolerances (|kernel - plain| <= atol + rtol * |plain|):
@@ -160,12 +183,12 @@ def stack_bytes(stack) -> int:
 
 
 def elite_stack(in_size: int, out_size: int, dtype, g: torch.Generator,
-                deterministic: bool = False):
+                deterministic: bool = False, hid: int = HID):
     """A 5-elite packed stack from the port's own init, and the logvar bounds
     (None for a deterministic model)."""
     from mbrl_tpu_torch.models import GaussianMLP
 
-    model = GaussianMLP(in_size, out_size, LAYERS, ENSEMBLE, HID, activation="silu",
+    model = GaussianMLP(in_size, out_size, LAYERS, ENSEMBLE, hid, activation="silu",
                         deterministic=deterministic, compute_dtype=dtype, device="cuda")
     params = model.set_elite(model.init(g), list(range(ELITES)))
     p = model._elite_view(params)
@@ -176,8 +199,8 @@ def elite_stack(in_size: int, out_size: int, dtype, g: torch.Generator,
 
 def check_k3(K, x, stack, dt_name: str, what: str):
     """K3 against its plain version on ``x``; its times and bound."""
-    tiles = K.pack_chain(stack)  # packed once, as a rollout does
-    got = K.fused_ensemble_mlp(x, stack, tiles=tiles)
+    tiles = K.pack_chain(stack) if K.takes_chain(stack.dims, stack.low_precision) else None
+    got = K.fused_ensemble_mlp(x, stack, tiles=tiles)  # packed once, as a rollout does
     ref = K.fused_ensemble_mlp_plain(x, stack)
     tol = TOL[("K3", dt_name)]
     err, ok = max_err(got, ref, tol)
@@ -201,7 +224,8 @@ def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
     against N(0,1), and its times and bound."""
     out = stack.dims[-1] // 2
     tol = TOL[("K2", dt_name)]
-    tiles = K.pack_chain(stack)  # the kernels' layout, packed once as the rollout does
+    # the chain's layout, packed once as the rollout does (the wide route reads the stack)
+    tiles = K.pack_chain(stack) if K.takes_chain(stack.dims, stack.low_precision) else None
     got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=False, tiles=tiles)
     ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out, sample=False)
     err, ok = max_err(got, ref, tol)
@@ -231,6 +255,56 @@ def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
         "z_kurtosis": zk, "ms": time_graph_ms(launch, 20), "eager_ms": time_ms(launch, 20),
         "plain_ms": time_ms(
             lambda: K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out), 10),
+        "bound_ms": bms, "bound_by": bby,
+    }
+
+
+def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str):
+    """K1 at config A's shape (B=8000, H=30, obs 17, act 6, tile 64): its mean
+    path against its plain version, its sampled returns against the plain
+    version's within standard error, and its times and bound."""
+    dev = torch.device("cuda")
+    shard = BATCH // ELITES
+    tile = K.pick_tile(shard)
+    num_tiles = BATCH // tile
+    rot = torch.randint(0, num_tiles, (HORIZON,), generator=g)
+    rot[0] = 0
+    rot = (torch.cumsum(rot, 0) % num_tiles).to(dev, torch.int32)
+    obs0 = (0.1 * torch.randn((OBS_A,), generator=g)).expand(BATCH, OBS_A).contiguous().to(dev)
+    seqs = torch.rand((POP, HORIZON, ACT), generator=g) * 2 - 1
+    acts = seqs.repeat(PARTICLES, 1, 1).contiguous().to(dev)
+    dmask = torch.ones((1, OBS_A), device=dev)
+    args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, OBS_A + 1, tile)
+    carry = 4 * K.MAX_TILE * (OBS_A + 1)
+    tiles = K.pack_chain(stack) if K.takes_chain(stack.dims, stack.low_precision, carry) else None
+    got = K.fused_rollout_returns(g, *args, sample=False, tiles=tiles)
+    ref = K.fused_rollout_returns_plain(g, *args, sample=False)
+    err, ok = max_err(got, ref, TOL[("K1", dt_name)])
+    check(ok, f"K1 {dt_name} {what} (mean path) disagrees with its plain version: max abs err {err}")
+    # sampled path: per-sequence mean returns agree within standard error
+    n_seeds = 8
+
+    def per_seq(fn):
+        runs = torch.stack([fn(g, *args, sample=True).reshape(PARTICLES, POP) for _ in range(n_seeds)])
+        runs = runs.reshape(-1, POP).double()
+        return runs.mean(0), runs.var(0), runs.shape[0]
+
+    mk, vk, nk = per_seq(functools.partial(K.fused_rollout_returns, tiles=tiles))
+    mp, vp, _ = per_seq(K.fused_rollout_returns_plain)
+    se = torch.sqrt((vk + vp) / nk)
+    z_max = float(((mk - mp).abs() / se).max())
+    var_ratio = float(vk.mean() / vp.mean())
+    check(z_max < 5.0 and 0.8 < var_ratio < 1.25,
+          f"K1 {dt_name} {what} sampled returns differ: max |dmean|/se {z_max}, var ratio {var_ratio}")
+    flops = 2.0 * BATCH * HORIZON * macs_per_row(stack.dims)
+    nbytes = stack_bytes(stack) + (obs0.numel() + acts.numel() + got.numel()) * 4
+    bms, bby = bound(flops, nbytes, stack.low_precision)
+    return {
+        "max_abs_err": err, "tol": TOL[("K1", dt_name)], "sampled_max_z": z_max,
+        "sampled_var_ratio": var_ratio,
+        "ms": time_graph_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5),
+        "eager_ms": time_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5, warmup=1),
+        "plain_ms": time_ms(lambda: K.fused_rollout_returns_plain(g, *args), 3, warmup=1),
         "bound_ms": bms, "bound_by": bby,
     }
 
@@ -275,7 +349,6 @@ def kernel_checks():
     results = {}
     shard = BATCH // ELITES
     for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        bf = dtype == torch.bfloat16
         # K3 / K2 at config B/C shapes: E=5, S=1600, in=24, out=18
         stack, max_lv, min_lv = elite_stack(OBS_B + ACT, OBS_B, dtype, g)
         x = torch.randn((ELITES, shard, OBS_B + ACT), generator=g).to(dev)
@@ -317,47 +390,7 @@ def kernel_checks():
         x = torch.randn((ELITES, MBPO_ROWS // ELITES, OBS_A + ACT), generator=g).to(dev)
         results[("K3@C100k", dt_name)] = check_k3(K, x, stack, dt_name, "C100k")
         del x
-        tile = K.pick_tile(shard)
-        num_tiles = BATCH // tile
-        rot = torch.randint(0, num_tiles, (HORIZON,), generator=g)
-        rot[0] = 0
-        rot = (torch.cumsum(rot, 0) % num_tiles).to(dev, torch.int32)
-        obs0 = (0.1 * torch.randn((OBS_A,), generator=g)).expand(BATCH, OBS_A).contiguous().to(dev)
-        seqs = torch.rand((POP, HORIZON, ACT), generator=g) * 2 - 1
-        acts = seqs.repeat(PARTICLES, 1, 1).contiguous().to(dev)
-        dmask = torch.ones((1, OBS_A), device=dev)
-        args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, OBS_A + 1, tile)
-        tiles = K.pack_chain(stack)
-        got = K.fused_rollout_returns(g, *args, sample=False, tiles=tiles)
-        ref = K.fused_rollout_returns_plain(g, *args, sample=False)
-        err, ok = max_err(got, ref, TOL[("K1", dt_name)])
-        check(ok, f"K1 {dt_name} (mean path) disagrees with its plain version: max abs err {err}")
-        # sampled path: per-sequence mean returns agree within standard error
-        n_seeds = 8
-
-        def per_seq(fn):
-            runs = torch.stack([fn(g, *args, sample=True).reshape(PARTICLES, POP) for _ in range(n_seeds)])
-            runs = runs.reshape(-1, POP).double()
-            return runs.mean(0), runs.var(0), runs.shape[0]
-
-        mk, vk, nk = per_seq(functools.partial(K.fused_rollout_returns, tiles=tiles))
-        mp, vp, _ = per_seq(K.fused_rollout_returns_plain)
-        se = torch.sqrt((vk + vp) / nk)
-        z_max = float(((mk - mp).abs() / se).max())
-        var_ratio = float(vk.mean() / vp.mean())
-        check(z_max < 5.0 and 0.8 < var_ratio < 1.25,
-              f"K1 {dt_name} sampled returns differ: max |dmean|/se {z_max}, var ratio {var_ratio}")
-        flops = 2.0 * BATCH * HORIZON * macs_per_row(stack.dims)
-        nbytes = stack_bytes(stack) + (obs0.numel() + acts.numel() + got.numel()) * 4
-        bms, bby = bound(flops, nbytes, bf)
-        results[("K1", dt_name)] = {
-            "max_abs_err": err, "tol": TOL[("K1", dt_name)], "sampled_max_z": z_max,
-            "sampled_var_ratio": var_ratio,
-            "ms": time_graph_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5),
-            "eager_ms": time_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5, warmup=1),
-            "plain_ms": time_ms(lambda: K.fused_rollout_returns_plain(g, *args), 3, warmup=1),
-            "bound_ms": bms, "bound_by": bby,
-        }
+        results[("K1", dt_name)] = check_k1(K, g, stack, max_lv, min_lv, dt_name, "A")
         print(f"kernels {dt_name}: " + json.dumps(
             {k[0]: results[k] for k in results if k[1] == dt_name}), flush=True)
     return results
@@ -366,96 +399,135 @@ def kernel_checks():
 def activation_sweep():
     """K3 and K2 (mean path) for every activation, on a ragged row count
     (100 rows: one full 64-row tile and one partial), f32 and bf16; K3 also on
-    a deterministic model's head (18 columns, not 36)."""
+    a deterministic model's head (18 columns, not 36). At ``HID`` columns (the
+    chain) and at 300 (the wide route)."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED + 9)
     dev = torch.device("cuda")
-    dims = (OBS_B + ACT, HID, HID, 2 * OBS_B)
-    ws = [0.1 * torch.randn((ELITES, a, b), generator=g) for a, b in zip(dims[:-1], dims[1:])]
-    bs = [0.1 * torch.randn((ELITES, 1, b), generator=g) for b in dims[1:]]
-    x = torch.randn((ELITES, 100, dims[0]), generator=g).to(dev)
-    max_lv = torch.full((1, OBS_B), 0.5, device=dev)
-    min_lv = torch.full((1, OBS_B), -10.0, device=dev)
     errs = {}
-    for act in K.ACTIVATION_CODES:
-        for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            stack = K.pack_mlp([w.to(dev) for w in ws[:-1]], [b.to(dev) for b in bs[:-1]],
-                               ws[-1].to(dev), bs[-1].to(dev), act, dtype=dtype)
-            tol = TOL[("K3", dt_name)]
-            e3, ok3 = max_err(K.fused_ensemble_mlp(x, stack), K.fused_ensemble_mlp_plain(x, stack), tol)
-            e2, ok2 = max_err(
-                K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False),
-                K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B, sample=False),
-                tol)
-            det = K.pack_mlp([w.to(dev) for w in ws[:-1]], [b.to(dev) for b in bs[:-1]],
-                             ws[-1][..., :OBS_B].contiguous().to(dev),
-                             bs[-1][..., :OBS_B].contiguous().to(dev), act, dtype=dtype)
-            ed, okd = max_err(K.fused_ensemble_mlp(x, det), K.fused_ensemble_mlp_plain(x, det), tol)
-            check(ok3 and ok2 and okd, f"{act} {dt_name}: kernel vs plain max abs err K3 {e3}, "
-                                       f"K2 {e2}, K3 deterministic head {ed}")
-            errs[f"{act}/{dt_name}"] = max(e3, e2, ed)
+    for hid in (HID, 300):
+        dims = (OBS_B + ACT, hid, hid, 2 * OBS_B)
+        ws = [0.1 * torch.randn((ELITES, a, b), generator=g) for a, b in zip(dims[:-1], dims[1:])]
+        bs = [0.1 * torch.randn((ELITES, 1, b), generator=g) for b in dims[1:]]
+        x = torch.randn((ELITES, 100, dims[0]), generator=g).to(dev)
+        max_lv = torch.full((1, OBS_B), 0.5, device=dev)
+        min_lv = torch.full((1, OBS_B), -10.0, device=dev)
+        for act in K.ACTIVATION_CODES:
+            for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                stack = K.pack_mlp([w.to(dev) for w in ws[:-1]], [b.to(dev) for b in bs[:-1]],
+                                   ws[-1].to(dev), bs[-1].to(dev), act, dtype=dtype)
+                tol = TOL[("K3", dt_name)]
+                e3, ok3 = max_err(K.fused_ensemble_mlp(x, stack),
+                                  K.fused_ensemble_mlp_plain(x, stack), tol)
+                e2, ok2 = max_err(
+                    K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OBS_B, sample=False),
+                    K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, OBS_B,
+                                                        sample=False),
+                    tol)
+                det = K.pack_mlp([w.to(dev) for w in ws[:-1]], [b.to(dev) for b in bs[:-1]],
+                                 ws[-1][..., :OBS_B].contiguous().to(dev),
+                                 bs[-1][..., :OBS_B].contiguous().to(dev), act, dtype=dtype)
+                ed, okd = max_err(K.fused_ensemble_mlp(x, det), K.fused_ensemble_mlp_plain(x, det),
+                                  tol)
+                check(ok3 and ok2 and okd, f"{act} {dt_name} at {hid} columns: kernel vs plain "
+                                           f"max abs err K3 {e3}, K2 {e2}, K3 deterministic head {ed}")
+                errs[f"{act}/{dt_name}/{hid}"] = max(e3, e2, ed)
     return errs
 
 
-def widest_layer():
-    """K3, K2 and K1 (mean paths) against their plain versions at the widest
-    layer the kernels take (256 columns, 128 per warpgroup), f32 and bf16:
-    K3 and K2 on ragged rows, K1 over 3 steps of 640 rows."""
+def width_sweep():
+    """K3, K2 and K1 (mean paths) against their plain versions at each width
+    of ``SWEEP_WIDTHS`` (two hidden layers: 256 is the chain's widest, the
+    others take the wide route) and through a ``DEEP_PRODUCTS``-product chain
+    64 wide (the wide route), f32 and bf16: K3 and K2 on ragged rows (100 a
+    member), K1 over 3 steps of 640 rows. Checks the route each took."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED + 10)
     dev = torch.device("cuda")
-    wide = K.TC_MAX_WIDTH
     errs = {}
     for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for name, in_size, out in (("K3", OBS_B + ACT, OBS_B), ("K2", OBS_B + ACT, OBS_B),
-                                   ("K1", OBS_A + ACT, OBS_A + 1)):
-            dims = (in_size, wide, wide, 2 * out)
-            ws = [(torch.randn((ELITES, a, b), generator=g) / a**0.5).to(dev)
-                  for a, b in zip(dims[:-1], dims[1:])]
-            bs = [(0.1 * torch.randn((ELITES, 1, b), generator=g)).to(dev) for b in dims[1:]]
-            stack = K.pack_mlp(ws[:-1], bs[:-1], ws[-1], bs[-1], "silu", dtype=dtype)
-            max_lv = torch.full((1, out), 0.5, device=dev)
-            min_lv = torch.full((1, out), -10.0, device=dev)
-            if name == "K1":
-                batch, steps = ELITES * 2 * K.MAX_TILE, 3
-                rot = torch.tensor([0, 3, 7], dtype=torch.int32, device=dev)
-                obs0 = (0.1 * torch.randn((batch, OBS_A), generator=g)).to(dev)
-                acts = (torch.rand((batch, steps, ACT), generator=g) * 2 - 1).to(dev)
-                args = (rot, obs0, acts, torch.ones((1, OBS_A), device=dev), stack, max_lv, min_lv,
-                        out, K.MAX_TILE)
-                got = K.fused_rollout_returns(g, *args, sample=False)
-                ref = K.fused_rollout_returns_plain(g, *args, sample=False)
-            else:
-                x = torch.randn((ELITES, 100, in_size), generator=g).to(dev)
-                if name == "K2":
-                    got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=False)
-                    ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out,
-                                                              sample=False)
+        for width in SWEEP_WIDTHS + ("deep",):
+            hidden = (64,) * (DEEP_PRODUCTS - 1) if width == "deep" else (width, width)
+            for name, in_size, out in (("K3", OBS_B + ACT, OBS_B), ("K2", OBS_B + ACT, OBS_B),
+                                       ("K1", OBS_A + ACT, OBS_A + 1)):
+                dims = (in_size, *hidden, 2 * out)
+                ws = [(torch.randn((ELITES, a, b), generator=g) / a**0.5).to(dev)
+                      for a, b in zip(dims[:-1], dims[1:])]
+                bs = [(0.1 * torch.randn((ELITES, 1, b), generator=g)).to(dev) for b in dims[1:]]
+                stack = K.pack_mlp(ws[:-1], bs[:-1], ws[-1], bs[-1], "silu", dtype=dtype)
+                max_lv = torch.full((1, out), 0.5, device=dev)
+                min_lv = torch.full((1, out), -10.0, device=dev)
+                carry = 4 * K.MAX_TILE * (OBS_A + 1) if name == "K1" else 0
+                chain = K.takes_chain(dims, dtype == torch.bfloat16, carry)
+                check(chain == (width == K.TC_MAX_WIDTH),
+                      f"{name} at width {width}: took the {'chain' if chain else 'wide route'}")
+                if name == "K1":
+                    batch, steps = ELITES * 2 * K.MAX_TILE, 3
+                    rot = torch.tensor([0, 3, 7], dtype=torch.int32, device=dev)
+                    obs0 = (0.1 * torch.randn((batch, OBS_A), generator=g)).to(dev)
+                    acts = (torch.rand((batch, steps, ACT), generator=g) * 2 - 1).to(dev)
+                    args = (rot, obs0, acts, torch.ones((1, OBS_A), device=dev), stack, max_lv,
+                            min_lv, out, K.MAX_TILE)
+                    got = K.fused_rollout_returns(g, *args, sample=False)
+                    ref = K.fused_rollout_returns_plain(g, *args, sample=False)
                 else:
-                    got = K.fused_ensemble_mlp(x, stack)
-                    ref = K.fused_ensemble_mlp_plain(x, stack)
-            err, ok = max_err(got, ref, TOL[(name, dt_name)])
-            check(ok, f"{name} {dt_name} at width {wide} disagrees with its plain version: "
-                      f"max abs err {err}")
-            errs[f"{name}/{dt_name}"] = err
+                    x = torch.randn((ELITES, 100, in_size), generator=g).to(dev)
+                    if name == "K2":
+                        got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out,
+                                                            sample=False)
+                        ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv,
+                                                                  out, sample=False)
+                    else:
+                        got = K.fused_ensemble_mlp(x, stack)
+                        ref = K.fused_ensemble_mlp_plain(x, stack)
+                err, ok = max_err(got, ref, TOL[(name, dt_name)])
+                check(ok, f"{name} {dt_name} at width {width} ({len(dims) - 1} products) "
+                          f"disagrees with its plain version: max abs err {err}")
+                errs[f"{name}/{dt_name}/{width}"] = err
     return errs
+
+
+def wide_kernel_checks():
+    """K3, K2 and K1 on the wide route at ``WIDE_HID`` columns: the shapes of
+    K3 ``C8k``, K2 ``B`` and K1 ``A`` with a 4 x ``WIDE_HID`` model (the
+    port's init, 5 elites), f32 and bf16, checked and timed as
+    ``kernel_checks`` does."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(SEED + 11)
+    dev = torch.device("cuda")
+    results = {}
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        stack, max_lv, min_lv = elite_stack(OBS_B + ACT, OBS_B, dtype, g, hid=WIDE_HID)
+        check(not K.takes_chain(stack.dims, stack.low_precision), "a 512-wide stack took the chain")
+        x = torch.randn((ELITES, BATCH // ELITES, OBS_B + ACT), generator=g).to(dev)
+        results[("K3@W512", dt_name)] = check_k3(K, x, stack, dt_name, f"{WIDE_HID} wide")
+        results[("K2@W512", dt_name)] = check_k2(K, g, x, stack, max_lv, min_lv, dt_name,
+                                                 f"{WIDE_HID} wide")
+        stack, max_lv, min_lv = elite_stack(OBS_A + ACT, OBS_A + 1, dtype, g, hid=WIDE_HID)
+        results[("K1@W512", dt_name)] = check_k1(K, g, stack, max_lv, min_lv, dt_name,
+                                                 f"{WIDE_HID} wide")
+        print(f"wide route {WIDE_HID} {dt_name}: " + json.dumps(
+            {k[0]: results[k] for k in results if k[1] == dt_name}), flush=True)
+    return results
 
 
 # --------------------------------------------------------------------------- #
 # Phases 3-5: the main path through the port's entry points
 # --------------------------------------------------------------------------- #
 def build_config(name: str, device: str, g: torch.Generator, identical: bool = False,
-                 dtype: str = "bfloat16"):
-    """Config A (with its model in ``dtype``), B or D: environment, state, obs width."""
+                 dtype: str = "bfloat16", hid: int = HID):
+    """Config A (with its model in ``dtype``), B or D, with ``hid``-wide layers:
+    environment, state, obs width."""
     from mbrl_tpu_torch.envs import reward_fns, termination_fns
     from mbrl_tpu_torch.envs.pets_halfcheetah import HalfCheetahEnv
     from mbrl_tpu_torch.models import GaussianMLP, ModelEnv, TransitionRewardModel
 
     if name == "A":
         # bench.py:_build_env: learned rewards, rotate, bf16
-        model = GaussianMLP(OBS_A + ACT, OBS_A + 1, LAYERS, ENSEMBLE, HID, activation="silu",
+        model = GaussianMLP(OBS_A + ACT, OBS_A + 1, LAYERS, ENSEMBLE, hid, activation="silu",
                             propagation_method="random_model", rollout_shuffle="rotate",
                             compute_dtype=dtype, device=device)
         wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
@@ -465,7 +537,7 @@ def build_config(name: str, device: str, g: torch.Generator, identical: bool = F
     else:
         # B: overrides/pets_halfcheetah.yaml + gaussian_mlp_ensemble.yaml; D: the
         # same with that file's `deterministic` knob on
-        model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, ENSEMBLE, HID, activation="silu",
+        model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, ENSEMBLE, hid, activation="silu",
                             propagation_method="random_model", rollout_shuffle="sort",
                             deterministic=name == "D", device=device)
         wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
@@ -506,7 +578,7 @@ def agreement(name: str, pop: int) -> float:
     return err
 
 
-def make_agent(name: str, device: str = "cuda"):
+def make_agent(name: str, device: str = "cuda", hid: int = HID):
     """The CEM MPC agent of config A, B or D: 5 iterations, elite ratio 0.16,
     alpha 0.12, mean of the elites, actions in [-1, 1]."""
     from mbrl_tpu_torch.planning import (
@@ -514,7 +586,7 @@ def make_agent(name: str, device: str = "cuda"):
     )
 
     g = torch.Generator().manual_seed(SEED + 1)
-    env, state, obs_dim = build_config(name, device, g)
+    env, state, obs_dim = build_config(name, device, g, hid=hid)
     lb, ub = -np.ones(ACT, np.float32), np.ones(ACT, np.float32)
     cem = CEMOptimizer(5, 0.16, POP, np.tile(lb, (HORIZON, 1)), np.tile(ub, (HORIZON, 1)),
                        alpha=0.12, return_mean_elites=True, device=device)
@@ -524,12 +596,12 @@ def make_agent(name: str, device: str = "cuda"):
     return agent, obs_dim
 
 
-def plan_config(name: str, device: str = "cuda"):
-    agent, obs_dim = make_agent(name, device)
+def plan_config(name: str, device: str = "cuda", hid: int = HID, acts: int = 3):
+    agent, obs_dim = make_agent(name, device, hid)
     lb, ub = -np.ones(ACT, np.float32), np.ones(ACT, np.float32)
     rng = np.random.default_rng(SEED)
     times = []
-    for _ in range(3):
+    for _ in range(acts):
         obs = (0.1 * rng.standard_normal(obs_dim)).astype(np.float32)
         sync(device)
         t0 = time.perf_counter()
@@ -645,20 +717,17 @@ CONFIG_E = {
 }
 
 
-class RecordingCartPole:
-    """The port's continuous cartpole, keeping each step's action, each
-    episode's reward and, per step, the host time since the step or reset
-    before it returned. In ``pets.train`` that gap is the agent's ``act`` (which
-    returns a numpy action, so the card has finished) and, at a step that
-    retrains, the retraining before it."""
+class RecordingEnv:
+    """Wraps an environment, keeping each step's action, each episode's
+    reward and, per step, the host time since the step or reset before it
+    returned. In ``pets.train`` and ``mbpo.train`` that gap is the agent's
+    ``act`` (which returns a numpy action, so the card has finished) and
+    whatever the loop did after the step before: a retraining, a bundle of
+    SAC updates, an evaluation."""
 
-    def __init__(self):
-        from mbrl_tpu_torch.envs.cartpole_continuous import CartPoleEnv
-
-        self.env = CartPoleEnv()
-        self.env.np_random = np.random.default_rng(SEED)
-        self.env.action_space.seed(SEED)
-        self.observation_space, self.action_space = self.env.observation_space, self.env.action_space
+    def __init__(self, env):
+        self.env = env
+        self.observation_space, self.action_space = env.observation_space, env.action_space
         self.episode_rewards, self.actions, self.gap_ms = [], [], []
 
     def reset(self, **kw):
@@ -674,6 +743,16 @@ class RecordingCartPole:
         self.episode_rewards[-1] += out[1]
         self._returned = time.perf_counter()
         return out
+
+
+def seeded_cartpole(env=None):
+    """The port's continuous cartpole (or ``env`` wrapping one), seeded with ``SEED``."""
+    from mbrl_tpu_torch.envs.cartpole_continuous import CartPoleEnv
+
+    env = CartPoleEnv() if env is None else env
+    getattr(env, "unwrapped", env).np_random = np.random.default_rng(SEED)
+    env.action_space.seed(SEED)
+    return env
 
 
 def read_csv(path) -> dict:
@@ -711,7 +790,7 @@ def _pets_config_e(device, asked, config, work_dir):
     cfg = Config(copy.deepcopy(CONFIG_E if config is None else config))
     cfg.overrides["num_steps"] = asked
     explore, freq = cfg.algorithm.initial_exploration_steps, cfg.algorithm.freq_train_model
-    env = RecordingCartPole()
+    env = RecordingEnv(seeded_cartpole())
     # pets.train builds its model itself and returns the best reward only: keep
     # the wrapper it builds (for `model.packs`); the rest is read from what the
     # run writes. The logger's table of every epoch goes to a buffer, not stdout.
@@ -1054,6 +1133,357 @@ def act_batch_config_b(device: str = "cuda", workers: int = 4):
     return times
 
 
+# --------------------------------------------------------------------------- #
+# The wide route on the main path's entry points
+# --------------------------------------------------------------------------- #
+def wide_paths(device: str = "cuda"):
+    """A ``WIDE_HID``-wide model through the entry points: one ``act`` of
+    config A (K1) and of config B (K2), and ``GaussianMLP._forward_sharded``
+    (K3) on the card against the same model on the CPU."""
+    from mbrl_tpu_torch.models import GaussianMLP
+    from mbrl_tpu_torch.ops import kernels as K
+
+    out = {"act_ms_A": plan_config("A", device, hid=WIDE_HID, acts=1),
+           "act_ms_B": plan_config("B", device, hid=WIDE_HID, acts=1)}
+    vals = {}
+    rows = BATCH
+    x = torch.randn((rows, OBS_B + ACT), generator=torch.Generator().manual_seed(SEED + 12))
+    perm = torch.randperm(rows, generator=torch.Generator().manual_seed(SEED + 13))
+    for dev in (device, "cpu"):
+        model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, ENSEMBLE, WIDE_HID, activation="silu",
+                            propagation_method="random_model", device=dev)
+        params = model.set_elite(model.init(torch.Generator().manual_seed(SEED + 14)),
+                                 list(range(ELITES)))
+        check(not K.takes_chain(model.packed(params).stack.dims, False), "a 512-wide model took the chain")
+        mean, logvar = model._forward_sharded(params, x.to(dev), perm.to(dev))
+        vals[dev] = (mean.float().cpu(), logvar.float().cpu())
+    tol = TOL[("K3", "f32")]
+    err = max(max_err(a, b, tol)[0] for a, b in zip(vals[device], vals["cpu"]))
+    check(all(max_err(a, b, tol)[1] for a, b in zip(vals[device], vals["cpu"])),
+          f"_forward_sharded at {WIDE_HID} columns: card vs CPU max abs err {err} (tol {tol})")
+    out["forward_sharded_max_abs_err"] = err
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Config M: a whole MBPO run through algorithms.mbpo.train
+# --------------------------------------------------------------------------- #
+# the published MBPO cartpole run has 5,000 steps; the cut run takes two epochs
+M_NUM_STEPS = 400
+# examples/conf/main.yaml with algorithm=mbpo, overrides=mbpo_cartpole,
+# dynamics_model=gaussian_mlp_ensemble, interpolations resolved (the default
+# action_optimizer group stays, unused and unresolved); tests/test_torch_config.py
+# holds it equal to the loaded YAML tree apart from the cut num_steps, the
+# dataset_size that keeps the replay buffer at the published run's 5,000 rows,
+# and checkpoint_every, which makes the run save its model, buffer and a
+# checkpoint at each retraining
+CONFIG_M = {
+    "algorithm": {
+        "name": "mbpo", "normalize": True, "normalize_double_precision": True,
+        "target_is_delta": True, "learned_rewards": True, "freq_train_model": 200,
+        "real_data_ratio": 0.0, "sac_samples_action": True, "initial_exploration_steps": 5000,
+        "random_initial_explore": False, "num_eval_episodes": 1, "dataset_size": 5000,
+    },
+    "dynamics_model": copy.deepcopy(CONFIG_E["dynamics_model"]),
+    "overrides": {
+        "env": "cartpole_continuous", "term_fn": "cartpole", "trial_length": 200,
+        "num_steps": M_NUM_STEPS, "epoch_length": 200, "num_elites": 5, "patience": 5,
+        "model_lr": 0.001, "model_wd": 5e-05, "model_batch_size": 256, "validation_ratio": 0.2,
+        "freq_train_model": 200, "effective_model_rollouts_per_step": 400,
+        "rollout_schedule": [1, 15, 1, 1], "num_sac_updates_per_step": 20,
+        "sac_updates_every_steps": 1, "num_epochs_to_retain_sac_buffer": 1,
+        "sac_gamma": 0.99, "sac_tau": 0.005, "sac_alpha": 0.2, "sac_policy": "Gaussian",
+        "sac_target_update_interval": 4, "sac_automatic_entropy_tuning": True,
+        "sac_target_entropy": -0.05, "sac_hidden_size": 256, "sac_lr": 0.0003,
+        "sac_batch_size": 256,
+    },
+    "action_optimizer": {
+        "_target_": "mbrl_tpu_torch.planning.CEMOptimizer",
+        "num_iterations": "${overrides.cem_num_iters}", "elite_ratio": "${overrides.cem_elite_ratio}",
+        "population_size": "${overrides.cem_population_size}", "alpha": "${overrides.cem_alpha}",
+        "lower_bound": "???", "upper_bound": "???", "return_mean_elites": True,
+        "clipped_normal": "${overrides.cem_clipped_normal}",
+    },
+    "parallel": {"enable": False},
+    "seed": 0, "log_frequency_agent": 1000, "save_video": False, "debug_mode": False,
+    "experiment": "default", "root_dir": "./exp", "checkpoint_every": 200,
+}
+OBS_M, ACT_M = 4, 1
+
+
+class _Timed:
+    """Wraps ``owner.name`` with a host clock between two synchronizes; keeps
+    each call's ms, its arguments and its result (the caller reads them after
+    the run)."""
+
+    def __init__(self, owner, name: str, device: str):
+        self.owner, self.name, self.device = owner, name, device
+        self.orig = getattr(owner, name)
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        sync(self.device)
+        t0 = time.perf_counter()
+        result = self.orig(*args, **kwargs)
+        sync(self.device)
+        self.calls.append(((time.perf_counter() - t0) * 1e3, args, kwargs, result))
+        return result
+
+
+def mbpo_config_m(device: str = "cuda", config=None):
+    """``mbpo.train`` on the port's cartpole (``util.env.make_env``, capped at
+    200 steps) with ``CONFIG_M``. Returns the run's numbers and its work
+    directory (the caller removes it)."""
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_mbpo_")
+    try:
+        return _mbpo_config_m(device, config, work_dir), work_dir
+    except BaseException:
+        shutil.rmtree(work_dir, ignore_errors=True)
+        raise
+
+
+def _mbpo_config_m(device, config, work_dir):
+    import contextlib
+    import io
+    from unittest import mock
+
+    from mbrl_tpu_torch.algorithms import mbpo
+    from mbrl_tpu_torch.config import Config
+    from mbrl_tpu_torch.models import ModelTrainer
+    from mbrl_tpu_torch.planning.sac import SAC
+    from mbrl_tpu_torch.util.env import make_env
+    from mbrl_tpu_torch.util.replay_buffer import ReplayBuffer
+
+    cfg = Config(copy.deepcopy(CONFIG_M if config is None else config))
+    env, term_fn, _ = make_env(cfg)
+    test_env, _, _ = make_env(cfg)
+    env = RecordingEnv(seeded_cartpole(env))
+    seeded_cartpole(test_env)
+    explore, freq = cfg.algorithm.initial_exploration_steps, cfg.overrides.freq_train_model
+    rollouts = _Timed(mbpo, "imagined_rollout", device)
+    retrains = _Timed(ModelTrainer, "train_device", device)
+    bundles = _Timed(SAC, "update_from_buffer", device)
+    wrappers = []
+    create = mbpo.create_one_dim_tr_model
+
+    def build_model(*a, **kw):
+        wrappers.append(create(*a, **kw))
+        return wrappers[-1]
+
+    def rollout(*a, **kw):  # reads the buffer's count after the (timed) rollout
+        out = rollouts(*a, **kw)
+        stored.append(int(out.num_stored))
+        return out
+
+    stored = []
+    # the methods patched on their classes get no `self` through a plain
+    # callable: bind it
+    retrain = lambda self, *a, **kw: retrains(self, *a, **kw)  # noqa: E731
+    bundle = lambda self, *a, **kw: bundles(self, *a, **kw)  # noqa: E731
+    with mock.patch.object(mbpo, "imagined_rollout", rollout), \
+            mock.patch.object(ModelTrainer, "train_device", retrain), \
+            mock.patch.object(SAC, "update_from_buffer", bundle), \
+            mock.patch.object(mbpo, "create_one_dim_tr_model", build_model), \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        best = mbpo.train(env, test_env, term_fn, cfg, silent=False, work_dir=work_dir,
+                          device=device)
+        total_s = time.perf_counter() - t0
+    (wrapper,) = wrappers
+    steps = cfg.overrides.num_steps
+    retrainings = steps // freq
+    rows = cfg.overrides.effective_model_rollouts_per_step * freq
+    check(len(env.actions) == explore + steps, f"config M: {len(env.actions)} environment steps")
+    check(len(retrains.calls) == retrainings and len(rollouts.calls) == retrainings,
+          f"config M: {len(retrains.calls)} retrainings, {len(rollouts.calls)} rollouts")
+    check(stored[0] == rows, f"config M: the SAC buffer holds {stored[0]} rows after the first "
+                             f"rollout, not {rows}")
+    # SAC: 20 updates a step from the step of the first rollout on
+    bundle_ms = [c[0] for c in bundles.calls]
+    n_updates = cfg.overrides.num_sac_updates_per_step
+    check(len(bundle_ms) == steps - freq + 1, f"config M: {len(bundle_ms)} update bundles")
+    metrics = {k: torch.stack([c[3][1][k] for c in bundles.calls]).cpu().numpy()
+               for k in ("critic_loss", "policy_loss", "alpha_loss", "alpha")}
+    check(all(bool(np.isfinite(v).all()) for v in metrics.values()),
+          "config M: non-finite SAC losses or alpha")
+    # what the run wrote loads again
+    work = pathlib.Path(work_dir)
+    sac = bundles.calls[-1][1][0]
+    sac_state = sac.load_checkpoint(work / "sac.pkl")
+    check(int(sac_state.updates) > 0, "sac.pkl: a state before any update")
+    buffer = ReplayBuffer(cfg.algorithm.dataset_size, (OBS_M,), (ACT_M,), obs_type=np.double,
+                          action_type=np.double, reward_type=np.double)
+    buffer.load(work)
+    check(buffer.num_stored == cfg.algorithm.dataset_size, f"replay_buffer.npz: {buffer.num_stored} rows")
+    state = wrapper.load(wrapper.init(torch.Generator().manual_seed(0)), work)
+    check(state["params"]["elite"].shape == (ELITES,) and state["normalizer"].mean.dtype == torch.float64,
+          "model.pkl: elites or normalizer lost")
+    log = read_csv(work / "results.csv")
+    check(len(log["episode_reward"]) == steps // cfg.overrides.epoch_length
+          and bool(np.isfinite(log["episode_reward"]).all()), f"config M: evaluations {log}")
+    train_log = read_csv(work / "model_train.csv")
+    check(bool(np.isfinite(train_log["model_loss"]).all()), "config M: non-finite model loss")
+    # ms per environment step of the loop, SAC bundle included: the gap before
+    # each step that follows neither a retraining nor an evaluation
+    gaps = np.asarray(env.gap_ms[explore + 1:])
+    after = np.arange(steps - 1)  # the loop's step each gap follows
+    plain = (after + 1) % freq != 0
+    learning = plain & (after >= freq - 1)  # a bundle of SAC updates ran before
+    # one bundle under the profiler, on the run's last SAC state and buffer
+    _, b_args, b_kwargs, _ = bundles.calls[-1]
+    busy = profile_busy(lambda: bundles.orig(*b_args, **b_kwargs)) if device == "cuda" else None
+    return {
+        "num_steps": steps, "published_num_steps": 5000, "exploration_steps": explore,
+        "retrainings": retrainings, "total_s": total_s, "best_eval_reward": float(best),
+        "eval_rewards": log["episode_reward"],
+        "sac_buffer_rows_after_first_rollout": stored[0],
+        "sac_buffer_rows": stored,
+        "env_step_ms_median": float(np.median(gaps[learning])),
+        "env_step_ms_before_learning": float(np.median(gaps[plain & ~learning])),
+        "retrain_ms": [c[0] for c in retrains.calls],
+        "retrain_epochs": [int(sum(np.asarray(train_log["train_iteration"]) == i))
+                           for i in range(retrainings)],
+        "rollout_ms": [c[0] for c in rollouts.calls], "rollout_rows": rows,
+        "sac_updates": len(bundle_ms) * n_updates,
+        "sac_bundle_ms_median": float(np.median(bundle_ms)),
+        "sac_updates_per_s": n_updates / (float(np.median(bundle_ms)) / 1e3),
+        "sac_losses_last": {k: float(v[-1]) for k, v in metrics.items()},
+        "bundle_profile": busy,
+        "model_losses_first_last": [train_log["model_loss"][0], train_log["model_loss"][-1]],
+    }
+
+
+# --------------------------------------------------------------------------- #
+# Config M-HC: MBPO-HalfCheetah's shape without the environment
+# --------------------------------------------------------------------------- #
+# overrides/mbpo_halfcheetah.yaml: 400 rollouts a step x 250 steps between
+# retrainings; SAC 512 wide, batch 256, target entropy -1, target interval 1
+MHC_ROWS, MHC_HORIZONS = 100_000, (1, 5)
+MHC_SAC = dict(gamma=0.99, tau=0.005, alpha=0.2, policy="Gaussian", target_update_interval=1,
+               automatic_entropy_tuning=True, hidden_size=512, lr=0.0003, target_entropy=-1.0)
+MHC_BATCH, MHC_UPDATES = 256, 10
+
+
+def mhc_sac(device: str):
+    """MBPO-HalfCheetah's SAC (obs 17, act 6 in [-1, 1]) with weights from ``SEED``."""
+    from mbrl_tpu_torch.envs.spaces import Box
+    from mbrl_tpu_torch.planning.sac import SAC
+
+    sac = SAC(OBS_A, Box(-1.0, 1.0, shape=(ACT,)), device=device, **MHC_SAC)
+    return sac, sac.init(torch.Generator().manual_seed(SEED + 30))
+
+
+def sac_update_card_vs_cpu():
+    """One SAC update at M-HC's widths on a fixed batch, the same weights and
+    the same normals, on the card and on the CPU."""
+    from unittest import mock
+
+    from mbrl_tpu_torch.planning import sac as sac_mod
+
+    rng = np.random.default_rng(SEED + 31)
+    batch = (rng.standard_normal((MHC_BATCH, OBS_A)), rng.uniform(-1, 1, (MHC_BATCH, ACT)),
+             rng.standard_normal((MHC_BATCH, OBS_A)), rng.standard_normal((MHC_BATCH, 1)),
+             (rng.random((MHC_BATCH, 1)) > 0.05).astype(np.float64))
+    draws = [rng.standard_normal((MHC_BATCH, ACT)) for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sac, state = mhc_sac(dev)
+        it = iter(draws)
+        normal = lambda g, shape, device: torch.as_tensor(next(it), dtype=torch.float32, device=device)  # noqa: E731
+        with mock.patch.object(sac_mod, "normal", normal):
+            state, m = sac.update_parameters(
+                state, tuple(torch.as_tensor(b, dtype=torch.float32, device=dev) for b in batch), None)
+        leaves = [p.detach().cpu() for mod in (state.policy, state.critic, state.critic_target)
+                  for p in mod.parameters()] + [state.log_alpha.detach().cpu()]
+        out[dev] = ({k: float(v) for k, v in m.items()}, leaves)
+    (m_d, p_d), (m_c, p_c) = out["cuda"], out["cpu"]
+    loss_err = max(abs(m_d[k] - m_c[k]) / max(abs(m_c[k]), 1e-12)
+                   for k in ("critic_loss", "policy_loss", "alpha_loss"))
+    param_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+                    for a, b in zip(p_d, p_c))
+    check(loss_err <= 1e-5 and param_err <= 1e-4,
+          f"config M-HC: SAC update card vs CPU: losses {m_d} vs {m_c} (worst relative {loss_err}), "
+          f"worst parameter error {param_err} of its leaf's largest entry")
+    return {"loss_max_rel_err": loss_err, "param_max_rel_err": param_err, "losses_card": m_d,
+            "losses_cpu": m_c}
+
+
+def mbpo_halfcheetah_shape(device: str = "cuda"):
+    """The imagined rollout at MBPO-HalfCheetah's batch: a seeded GaussianMLP
+    (in 23, out 18 with the learned reward, 4 x 200 silu, E=7, 5 elites, f32,
+    double-precision normalizer) and M-HC's SAC, from 100,000 rows sampled from a
+    synthetic replay buffer into the device SAC buffer: rollout length 1, then
+    5, ``no_termination``; then three bundles of 10 SAC updates from that
+    buffer."""
+    from mbrl_tpu_torch.algorithms import mbpo
+    from mbrl_tpu_torch.envs import termination_fns
+    from mbrl_tpu_torch.models import GaussianMLP, ModelEnv, TransitionRewardModel
+    from mbrl_tpu_torch.util.device_buffer import DeviceReplayBuffer
+    from mbrl_tpu_torch.util.replay_buffer import ReplayBuffer
+
+    model = GaussianMLP(OBS_A + ACT, OBS_A + 1, LAYERS, ENSEMBLE, HID, activation="silu",
+                        propagation_method="random_model", device=device)
+    wrapper = TransitionRewardModel(model, target_is_delta=True, normalize=True,
+                                    normalize_double_precision=True, learned_rewards=True,
+                                    num_elites=ELITES)
+    state = wrapper.set_elite(wrapper.init(torch.Generator().manual_seed(SEED + 32)),
+                              list(range(ELITES)))
+    rng = np.random.default_rng(SEED + 33)
+    n = MHC_ROWS
+    obs, act = rng.standard_normal((n, OBS_A)), rng.uniform(-1, 1, (n, ACT))
+    next_obs = obs + 0.1 * np.tanh(obs[:, ::-1] + act.sum(1, keepdims=True))
+    buffer = ReplayBuffer(n, (OBS_A,), (ACT,), obs_type=np.double, action_type=np.double,
+                          reward_type=np.double, rng=np.random.default_rng(SEED + 34))
+    buffer.add_batch(obs, act, next_obs, next_obs[:, 0] - 0.1 * (act**2).sum(1),
+                     np.zeros(n, bool), np.zeros(n, bool))
+    state = wrapper.update_normalizer_host(state, buffer.get_all())
+    model_env = ModelEnv(wrapper, termination_fns.no_termination)
+    sac, sac_state = mhc_sac(device)
+    sac_buffer = DeviceReplayBuffer(n * sum(MHC_HORIZONS), OBS_A, ACT, device=device)
+    buf_state = sac_buffer.init()
+    g = torch.Generator(device=device).manual_seed(SEED + 35)
+    rollout_ms = []
+    for horizon in MHC_HORIZONS:
+        sync(device)
+        t0 = time.perf_counter()
+        buf_state = mbpo.rollout_model_and_populate_sac_buffer(
+            model_env, state, buffer, sac, sac_state, sac_buffer, buf_state, True, horizon, n, g)
+        sync(device)
+        rollout_ms.append((time.perf_counter() - t0) * 1e3)
+    stored = int(buf_state.num_stored)
+    check(stored == n * sum(MHC_HORIZONS), f"config M-HC: {stored} rows in the SAC buffer")
+    check(bool(torch.isfinite(buf_state.next_obs[:stored]).all() and
+               torch.isfinite(buf_state.reward[:stored]).all()), "config M-HC: non-finite rollout rows")
+    bundle_ms = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        sac_state, m = sac.update_from_buffer(sac_state, buf_state, g, MHC_UPDATES, MHC_BATCH)
+        sync(device)
+        bundle_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(bool(torch.isfinite(v)) for v in m.values()), f"config M-HC: SAC metrics {m}")
+    return {"rows": n, "horizons": list(MHC_HORIZONS), "rollout_ms": rollout_ms,
+            "rollout_ms_per_step": [t / h for t, h in zip(rollout_ms, MHC_HORIZONS)],
+            "sac_buffer_rows": stored, "bundle_ms": bundle_ms,
+            "sac_updates_per_s": MHC_UPDATES / (float(np.median(bundle_ms)) / 1e3)}
+
+
+def mbpo_kernel_checks():
+    """K3 at config M's shape: E=5 x S=16,000 (80,000 imagined rows over the 5
+    elites), in 5, head 10, 4 x 200 silu, f32 and bf16."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(SEED + 36)
+    results = {}
+    rows = CONFIG_M["overrides"]["effective_model_rollouts_per_step"] * CONFIG_M["overrides"]["freq_train_model"]
+    for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        stack, _, _ = elite_stack(OBS_M + ACT_M, OBS_M + 1, dtype, g)
+        x = torch.randn((ELITES, rows // ELITES, OBS_M + ACT_M), generator=g).to("cuda")
+        results[("K3@M", dt_name)] = check_k3(K, x, stack, dt_name, "M")
+    print("kernels at config M's shape: " + json.dumps({k[1]: v for k, v in results.items()}), flush=True)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA device",
@@ -1073,8 +1503,9 @@ def main() -> int:
 
     results = kernel_checks()
     print("activations, ragged rows (max abs err): " + json.dumps(activation_sweep()), flush=True)
-    print(f"widest layer, {K.TC_MAX_WIDTH} columns (max abs err): " + json.dumps(widest_layer()),
-          flush=True)
+    print("width sweep (max abs err): " + json.dumps(width_sweep()), flush=True)
+    results.update(wide_kernel_checks())
+    results.update(mbpo_kernel_checks())
 
     agree = {name: agreement(name, pop=40) for name in ("A", "B", "D")}
     print("agreement card vs cpu (identical members): " + json.dumps(agree), flush=True)
@@ -1143,30 +1574,59 @@ def main() -> int:
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
-    # K3 three times, each row checked and timed at the shape that its launches
-    # had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout steps
+    # the wide route on the entry points: one act of A (5 K1) and of B (150 K2),
+    # one _forward_sharded (K3)
+    wide, counts_w = counted(wide_paths)
+    print(f"{WIDE_HID}-wide model: " + json.dumps(wide) + f"  launches {counts_w}", flush=True)
+    want_w = {"fused_rollout_returns": 5, k2: 5 * HORIZON, "fused_ensemble_mlp": 1}
+    check(counts_w == want_w, f"{WIDE_HID}-wide model: expected launches {want_w}, got {counts_w}")
+
+    # config M: the MBPO loop. K3 alone, one launch per imagined step
     k3 = "fused_ensemble_mlp"
-    rows = {  # row: (wrapper, the main path's dtype, its launches there)
-        "K1": ("fused_rollout_returns", "bf16", counts_a["fused_rollout_returns"]),
-        "K2": (k2, "f32", counts_b[k2]),
-        "K2@E": (k2, "f32", counts_e[k2]),
-        "K2@MPPI": (k2, "f32", counts_mppi[k2]),
-        "K2@iCEM": (k2, "f32", counts_icem[k2]),
-        "K3": (k3, "f32", counts_c8[k3]),
-        "K3@C100k": (k3, "f32", counts_c100[k3]),
-        "K3@D": (k3, "f32", counts_d[k3]),
+    only_k3 = lambda n: {"fused_rollout_returns": 0, k2: 0, k3: n}  # noqa: E731
+    print(f"config M: num_steps cut from 5000 to {M_NUM_STEPS} (2 epochs) after "
+          f"{CONFIG_M['algorithm']['initial_exploration_steps']} steps of exploration by the SAC agent; "
+          f"dataset_size {CONFIG_M['algorithm']['dataset_size']}", flush=True)
+    (mbpo_numbers, m_dir), counts_m = counted(mbpo_config_m)
+    shutil.rmtree(m_dir, ignore_errors=True)
+    print("config M mbpo.train: " + json.dumps(mbpo_numbers) + f"  launches {counts_m}", flush=True)
+    check(counts_m == only_k3(mbpo_numbers["retrainings"] * 1),  # rollout length 1
+          f"config M: expected launches {only_k3(mbpo_numbers['retrainings'])}, got {counts_m}")
+    mhc, counts_mhc = counted(mbpo_halfcheetah_shape)
+    print("config M-HC: " + json.dumps(mhc) + f"  launches {counts_mhc}", flush=True)
+    want_mhc = only_k3(sum(MHC_HORIZONS))
+    check(counts_mhc == want_mhc, f"config M-HC: expected launches {want_mhc}, got {counts_mhc}")
+    print("config M-HC SAC update, card vs CPU: " + json.dumps(sac_update_card_vs_cpu()), flush=True)
+
+    # K3 several times, each row checked and timed at the shape that its
+    # launches had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout
+    # steps, M's imagined rollouts; the wide route's rows at 512 columns
+    chain = {"K1": "mbrl_tpu_torch/csrc/tc_chain.cu", "K2": "mbrl_tpu_torch/csrc/tc_chain.cu",
+             "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
+    wide_src = "mbrl_tpu_torch/csrc/wide_chain.cu"
+    rows = {  # row: (wrapper, the main path's dtype, its launches there, source)
+        "K1": ("fused_rollout_returns", "bf16", counts_a["fused_rollout_returns"], chain["K1"]),
+        "K2": (k2, "f32", counts_b[k2], chain["K2"]),
+        "K2@E": (k2, "f32", counts_e[k2], chain["K2"]),
+        "K2@MPPI": (k2, "f32", counts_mppi[k2], chain["K2"]),
+        "K2@iCEM": (k2, "f32", counts_icem[k2], chain["K2"]),
+        "K3": (k3, "f32", counts_c8[k3], chain["K3"]),
+        "K3@C100k": (k3, "f32", counts_c100[k3], chain["K3"]),
+        "K3@D": (k3, "f32", counts_d[k3], chain["K3"]),
+        "K3@M": (k3, "f32", counts_m[k3], chain["K3"]),
+        "K1@W512": ("fused_rollout_returns", "bf16", counts_w["fused_rollout_returns"], wide_src),
+        "K2@W512": (k2, "f32", counts_w[k2], wide_src),
+        "K3@W512": (k3, "f32", counts_w[k3], wide_src),
     }
-    source = {"K1": "mbrl_tpu_torch/csrc/tc_chain.cu", "K2": "mbrl_tpu_torch/csrc/tc_chain.cu",
-              "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
     stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
     line = []
-    for k, (wrapper, dtype, launches) in rows.items():
+    for k, (wrapper, dtype, launches, src) in rows.items():
         r = results[(k, dtype)]
         other = "f32" if dtype == "bf16" else "bf16"
         line.append({
             "name": f"{wrapper} ({k}, {dtype})",
             "route": "cuda",
-            "source": source[k.split("@")[0]],
+            "source": src,
             "replaces": REPLACES[k.split("@")[0]],
             "tpu_kernel": REPLACES[k.split("@")[0]],
             "dtype": dtype,
@@ -1186,7 +1646,12 @@ def main() -> int:
     print(json.dumps({"act_ms": {"A": times_a, "B": times_b, "D": times_d, "mppi": times_mppi,
                                  "icem": times_icem, "act_batch": times_batch,
                                  "E_median": pets_numbers["act_ms_median"]},
-                      "step_ms": {"C8k": times_c8, "C100k": times_c100}, "build_s": build_s,
+                      "step_ms": {"C8k": times_c8, "C100k": times_c100},
+                      "mbpo_M": {k: mbpo_numbers[k] for k in (
+                          "env_step_ms_median", "retrain_ms", "rollout_ms", "sac_updates_per_s",
+                          "total_s")},
+                      "mbpo_MHC": {k: mhc[k] for k in ("rollout_ms", "sac_updates_per_s")},
+                      "build_s": build_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,4 @@
-"""Model-based RL algorithms."""
+"""Model-based RL algorithms: PETS and MBPO."""
+from . import mbpo, pets
+
+__all__ = ["pets", "mbpo"]

@@ -51,22 +51,6 @@ def train(
         return _train_impl(env, termination_fn, reward_fn, cfg, silent, work_dir, device)
 
 
-def _reject_unported(cfg: Config) -> None:
-    """The mesh and the env worker pool live in ``parallel/``, which is not
-    ported yet: asking for either raises instead of being ignored."""
-    parallel = cfg.get("parallel", None)
-    if parallel is not None and parallel.get("enable", False):
-        raise NotImplementedError(
-            "a `parallel` group other than `none` needs the slice that ports parallel/ "
-            "(mesh sharding); use parallel=none"
-        )
-    if int(cfg.overrides.get("num_env_workers", 0) or 0) > 0:
-        raise NotImplementedError(
-            "overrides.num_env_workers > 0 needs the slice that ports parallel/ "
-            "(the env worker pool); leave it at 0"
-        )
-
-
 def _train_impl(
     env,
     termination_fn,
@@ -76,7 +60,7 @@ def _train_impl(
     work_dir: Optional[str] = None,
     device: DeviceLike = "cuda",
 ) -> np.float32:
-    _reject_unported(cfg)
+    util_common.reject_unported_parallel(cfg)
     device = resolve_device(device)
     debug_mode = cfg.get("debug_mode", False)
 

@@ -11,6 +11,12 @@ Input layout (``mbrl_tpu/models/gaussian_mlp.py:122-154``)::
 
 Every leaf is a numpy array (e.g. ``jax.tree_util.tree_map(np.asarray, state)``);
 this module never sees JAX.
+
+:func:`convert_sac_state` does the same for the JAX package's ``SACState``
+(``mbrl_tpu/planning/sac.py:53-62``): networks, log-alpha and the update
+counter, and the three optax Adam states (``mu``, ``nu``, ``count``) as
+``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq`` and ``step``, so that both
+packages can be stepped from one mid-training state.
 """
 from __future__ import annotations
 
@@ -28,10 +34,9 @@ def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device).to(dtype).contiguous()
 
 
-def _stat(normalizer, name: str):
-    if isinstance(normalizer, Mapping):
-        return normalizer[name]
-    return getattr(normalizer, name)
+def _field(obj, name: str):
+    """A field of a mapping or of an object (a dataclass or a named tuple)."""
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
 def convert_params(
@@ -65,14 +70,95 @@ def convert_state(
     if state.get("normalizer") is not None:
         n = state["normalizer"]
         # float64 statistics (PETS' normalize_double_precision) stay float64
-        double = np.asarray(_stat(n, "mean")).dtype == np.float64
+        double = np.asarray(_field(n, "mean")).dtype == np.float64
         sdt = torch.float64 if double else torch.float32
         normalizer = NormalizerState(
-            mean=_tensor(_stat(n, "mean"), dev, sdt),
-            std=_tensor(_stat(n, "std"), dev, sdt),
+            mean=_tensor(_field(n, "mean"), dev, sdt),
+            std=_tensor(_field(n, "std"), dev, sdt),
             eps=1e-12 if double else 1e-5,
         )
     return {
         "params": convert_params(state["params"], dev, compute_dtype),
         "normalizer": normalizer,
     }
+
+
+def _linear(sd: Dict[str, np.ndarray], name: str, w, b) -> None:
+    """A JAX (d_in, d_out) layer as ``nn.Linear``'s (d_out, d_in) weight."""
+    sd[f"{name}.weight"] = np.asarray(w).T
+    sd[f"{name}.bias"] = np.asarray(b)
+
+
+def _sac_policy_dict(tree, act_dim: int, gaussian: bool) -> Dict[str, np.ndarray]:
+    """The JAX policy layout (a list of three {"w", "b"}; the Gaussian head is
+    [mean | log_std] in one matrix) as the port's policy state dict; the Adam
+    moments share the layout."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, layer in zip(("linear1", "linear2"), tree[:2]):
+        _linear(sd, name, layer["w"], layer["b"])
+    w, b = np.asarray(tree[2]["w"]), np.asarray(tree[2]["b"])
+    if gaussian:
+        _linear(sd, "mean_linear", w[:, :act_dim], b[:act_dim])
+        _linear(sd, "log_std_linear", w[:, act_dim:], b[act_dim:])
+    else:
+        _linear(sd, "mean", w, b)
+    return sd
+
+
+def _sac_critic_dict(tree) -> Dict[str, np.ndarray]:
+    """The JAX twin critic ({"q1": [3 layers], "q2": [3 layers]}) as the
+    port's ``QNetwork`` state dict (linear1-3, linear4-6)."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(list(tree["q1"]) + list(tree["q2"])):
+        _linear(sd, f"linear{i + 1}", layer["w"], layer["b"])
+    return sd
+
+
+def _adam_part(opt_state):
+    """optax.adam's ``ScaleByAdamState`` (count, mu, nu) inside its chain state."""
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else [opt_state]
+    for part in parts:
+        if (isinstance(part, Mapping) and "mu" in part) or hasattr(part, "mu"):
+            return part
+    raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+
+
+def _load_adam(opt: torch.optim.Optimizer, module_params, opt_state, to_dict) -> None:
+    """Adam's per-parameter state from optax's: ``to_dict`` maps the moments'
+    tree to {parameter name: array}."""
+    adam = _adam_part(opt_state)
+    mu, nu = to_dict(_field(adam, "mu")), to_dict(_field(adam, "nu"))
+    step = float(np.asarray(_field(adam, "count")))
+    for name, p in module_params:
+        opt.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": torch.as_tensor(np.array(mu[name]), dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.as_tensor(np.array(nu[name]), dtype=p.dtype, device=p.device),
+        }
+
+
+def convert_sac_state(sac, state):
+    """JAX ``SACState`` (numpy leaves; a dataclass or a mapping of its fields)
+    → the port's :class:`~mbrl_tpu_torch.planning.sac.SACState` for ``sac``
+    (a port ``SAC`` of the same sizes), optimizer moments included."""
+    gaussian = sac.policy_type == "Gaussian"
+    policy, critic, critic_target = sac._modules()
+
+    def as_tensors(sd):
+        return {k: torch.as_tensor(np.array(v), dtype=torch.float32) for k, v in sd.items()}
+
+    def policy_dict(tree):
+        return _sac_policy_dict(tree, sac.act_dim, gaussian)
+
+    policy.load_state_dict(as_tensors(policy_dict(_field(state, "policy"))))
+    critic.load_state_dict(as_tensors(_sac_critic_dict(_field(state, "critic"))))
+    critic_target.load_state_dict(as_tensors(_sac_critic_dict(_field(state, "critic_target"))))
+    out = sac._state(policy, critic, critic_target,
+                     log_alpha=float(np.asarray(_field(state, "log_alpha"))),
+                     updates=int(np.asarray(_field(state, "updates"))))
+    _load_adam(out.policy_opt, policy.named_parameters(), _field(state, "policy_opt"), policy_dict)
+    _load_adam(out.critic_opt, critic.named_parameters(), _field(state, "critic_opt"),
+               _sac_critic_dict)
+    _load_adam(out.alpha_opt, [("log_alpha", out.log_alpha)], _field(state, "alpha_opt"),
+               lambda x: {"log_alpha": x})
+    return out

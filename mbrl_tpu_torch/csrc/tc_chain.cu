@@ -31,7 +31,9 @@
 //   epilogues between dependent products run on the CUDA cores, and 8 warps
 //   hide their latency better than 4. A warpgroup's N is one instruction
 //   width (8..128, a compile-time case: 64 accumulator registers; N = 208 is
-//   104 columns, 52 registers, per warpgroup), so a layer is at most 256 wide.
+//   104 columns, 52 registers, per warpgroup), so the chain takes layers up to
+//   256 wide and at most MAX_PRODUCTS products; the wrappers send any other
+//   stack down the wide route (wide_chain.cu).
 // - Each chunk is one pipeline stage (fence, products, commit), straight-line
 //   and on warp-uniform control flow. ptxas serializes wgmma (a wait before
 //   every one) when a stage depends on a path it must treat as divergent, so
@@ -48,13 +50,14 @@
 //   layer's A operand in shared memory; the head goes to shared memory (over
 //   the A region, which is free by then) for the Gaussian sample.
 //
-// Sampling: counter-based Philox4x32-10 keyed on two seed words from the
-// wrapper, counting on (row, column, 0, member) in K2 and (row, column,
-// step, tile) in K1.
+// Sampling (gaussian_head.cuh): counter-based Philox4x32-10 keyed on two seed
+// words from the wrapper, counting on (row, column, 0, member) in K2 and (row,
+// column, step, tile) in K1.
 //
 // Plain C interface, loaded with ctypes. Every entry returns
 // cudaGetLastError() after its launch.
 
+#include "gaussian_head.cuh"
 #include "tc_chain.cuh"
 
 #ifdef TC_TIMELINE
@@ -62,51 +65,6 @@ extern "C" int mbrl_timeline(unsigned long long* out) {
   return cudaMemcpyFromSymbol(out, tc_timeline, sizeof(tc_timeline));
 }
 #endif
-
-// ---------------------------------------------------------------------------
-// The Gaussian head's sampler: 24-bit uniforms and Box-Muller as
-// mbrl_tpu/ops/pallas_kernels.py:201-207 and :367-373
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-// logvar soft double-bounding (reference gaussian_mlp.py:150-154)
-__device__ __forceinline__ float bound_logvar(float lv, float max_lv, float min_lv) {
-  lv = max_lv - softplus(max_lv - lv);
-  return min_lv + softplus(lv - min_lv);
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// standard normal from one Philox block: 24-bit uniforms, u1 in (0, 1]
-// (log-safe), u2 in [0, 1), Box-Muller cosine branch
-__device__ __forceinline__ float box_muller(uint4 bits) {
-  const float u1 = (static_cast<float>(bits.x >> 8) + 1.0f) * 5.9604644775390625e-08f;
-  const float u2 = static_cast<float>(bits.y >> 8) * 5.9604644775390625e-08f;
-  return sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
-}
-
-// One Gaussian-head output: the mean, or mean + exp(logvar / 2) * N(0, 1)
-// with the normal drawn from Philox at counter `ctr`.
-__device__ __forceinline__ float head_draw(float mean, float raw_lv, float max_lv, float min_lv,
-                                           bool sample, uint4 ctr, uint2 key) {
-  if (!sample) return mean;
-  const float lv = bound_logvar(raw_lv, max_lv, min_lv);
-  return mean + expf(0.5f * lv) * box_muller(philox4x32_10(ctr, key));
-}
 
 // ---------------------------------------------------------------------------
 // K2: one rollout step. grid = (ceil(S / TC_ROWS), E), TC_THREADS threads.

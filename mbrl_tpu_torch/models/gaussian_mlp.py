@@ -9,9 +9,9 @@ explicit ``torch.Generator``.
 ``forward`` (the all-member broadcast forward, used by the ``expectation``
 propagation and the per-row fallback) stays ``torch.matmul``; the equal-shard
 forward ``_forward_sharded`` goes through kernel K3
-(:func:`mbrl_tpu_torch.ops.kernels.fused_ensemble_mlp`), which on the card
-takes layers up to 256 wide and raises on a wider model. The elite view and its
-packed weights are kept per model state (:meth:`GaussianMLP.packed`), so a
+(:func:`mbrl_tpu_torch.ops.kernels.fused_ensemble_mlp`) at any width: the
+tensor-core chain up to 256 columns, the wide route beyond. The elite view and
+its packed weights are kept per model state (:meth:`GaussianMLP.packed`), so a
 rollout of steps, and every plan between two retrainings, packs once.
 
 ``loss`` and ``eval_score`` differentiate ``forward`` with ``torch.autograd``;
@@ -207,7 +207,8 @@ class GaussianMLP:
         self, params: Params, input_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     ) -> _Packed:
         """The elite view of ``params`` with its packed weight stack and, on
-        the card, the kernels' tiles. With ``input_affine = (mean, std)``, the
+        the card, the chain route's tiles (none for a stack that takes the
+        wide route). With ``input_affine = (mean, std)``, the
         caller's input transform ``(x - mean) / std`` is folded into the first
         layer, an exact algebraic rewrite, and the stack takes raw inputs. Kept
         for as long as ``params`` (and the transform) hold the same tensors,
@@ -237,7 +238,8 @@ class GaussianMLP:
             stack = self.pack({**view, "layers": [first] + list(view["layers"][1:])})
         else:
             stack = self.pack(view)
-        tiles = kernels.pack_chain(stack) if stack.ws.device.type == "cuda" else None
+        chain = kernels.takes_chain(stack.dims, stack.low_precision)
+        tiles = kernels.pack_chain(stack) if chain and stack.ws.device.type == "cuda" else None
         entry = _Packed(key, tuple(leaves), view, stack, tiles)
         self._packed[folded] = entry
         self.packs += 1

@@ -102,20 +102,38 @@ def build(verbose: bool = False) -> pathlib.Path:
     return lib
 
 
+_P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_DIMS = ctypes.POINTER(ctypes.c_int)
+# every entry of the library: its argument types (each returns a CUDA error code)
+SIGNATURES = {
+    "mbrl_ensemble_mlp": [_P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _LL, _P],
+    "mbrl_ensemble_mlp_gaussian": [
+        _U, _U, _P, _P, _P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _I, _LL, _P,
+    ],
+    "mbrl_rollout_returns": [
+        _U, _U, _P, _P, _P, _P, _P, _P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _LL, _P,
+    ],
+    # the wide route (csrc/wide_chain.cu): host dims, device dims, ..., scratch
+    "mbrl_ensemble_mlp_wide": [
+        _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _P,
+    ],
+    "mbrl_ensemble_mlp_gaussian_wide": [
+        _U, _U, _P, _P, _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _P,
+    ],
+    "mbrl_rollout_returns_wide": [
+        _U, _U, _P, _P, _P, _P, _P, _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _LL, _P, _LL, _P,
+    ],
+}
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with every signature declared."""
     lib = ctypes.CDLL(str(build()))
-    p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
-    dims = ctypes.POINTER(ctypes.c_int)
-    lib.mbrl_ensemble_mlp.argtypes = [p, p, p, p, dims, i, i, i, i, i, i, ll, p]
-    lib.mbrl_ensemble_mlp.restype = i
-    lib.mbrl_ensemble_mlp_gaussian.argtypes = [
-        u, u, p, p, p, p, p, p, dims, i, i, i, i, i, i, i, ll, p
-    ]
-    lib.mbrl_ensemble_mlp_gaussian.restype = i
-    lib.mbrl_rollout_returns.argtypes = [
-        u, u, p, p, p, p, p, p, p, p, p, dims, i, i, i, i, i, i, i, i, i, i, i, ll, p
-    ]
-    lib.mbrl_rollout_returns.restype = i
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

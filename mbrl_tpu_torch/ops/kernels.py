@@ -28,9 +28,12 @@ The kernels read their weights in another layout, packed once per rollout by
 shared-memory layout, bf16, or for an f32 stack two tf32 copies (hi, lo) for
 3xTF32 products that keep f32-grade results.
 
-The kernels take chains of at most ``MAX_PRODUCTS`` products and layers at
-most ``TC_MAX_WIDTH`` wide (:func:`supports_fused_mlp`); on the card the
-wrappers raise on anything else.
+Each wrapper has two routes on the card, picked by :func:`takes_chain` from
+the stack's :class:`ChainLayout`: the tensor-core chain for chains of at most
+``MAX_PRODUCTS`` products with layers at most ``TC_MAX_WIDTH`` wide, and the
+wide route (``csrc/wide_chain.cu``, :class:`WideLayout`) for any other width
+and depth, with the same grid and one launch per call either way. The wide
+route reads the stack's own weights, not the packed tiles.
 """
 from __future__ import annotations
 
@@ -66,9 +69,10 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
 }
 
-# limits of the CUDA kernels (csrc/tc_chain.cuh): products of one chain, rows of
-# one block's tile, widest layer (two warpgroups of at most 128 accumulator
-# columns), stages of the weight ring, and the shared memory a block can use
+# limits of the tensor-core chain (csrc/tc_chain.cuh): products of one chain,
+# rows of one block's tile, widest layer (two warpgroups of at most 128
+# accumulator columns), stages of the weight ring, and the shared memory a
+# block can use; a stack past them takes the wide route (csrc/wide_chain.cu)
 MAX_PRODUCTS = 9
 MAX_TILE = 64
 TC_MAX_WIDTH = 256
@@ -256,12 +260,54 @@ def unpack_chain(tiles: ChainTiles, i: int) -> Tuple[torch.Tensor, ...]:
     return tuple(torch.cat(b, dim=1) for b in blocks)
 
 
+@dataclasses.dataclass(frozen=True)
+class WideLayout:
+    """What the wide route reads (mirrors ``wide_sizes`` in
+    ``csrc/wide_chain.cu``): the stack's own weights, product i's (d_in,
+    d_out) block row-major at :meth:`w_offset` of a member's row of
+    ``MLPStack.ws`` and its bias at :meth:`b_offset`; and the activation
+    scratch of one block, two 64-row buffers at a row stride of the widest
+    layer (``ld``), plus K1's obs carry and running return."""
+
+    dims: Tuple[int, ...]
+
+    @property
+    def ld(self) -> int:
+        return max(self.dims)
+
+    def w_offset(self, i: int) -> int:
+        return sum(a * b for a, b in zip(self.dims[:i], self.dims[1 : i + 1]))
+
+    def b_offset(self, i: int) -> int:
+        return sum(self.dims[1 : i + 1])
+
+    @property
+    def member_elems(self) -> int:
+        return self.w_offset(len(self.dims) - 1)
+
+    def block_floats(self, carry_dim: int = 0) -> int:
+        """f32 scratch one block uses; ``carry_dim`` is K1's obs width (its
+        carry and running return take ``MAX_TILE * (carry_dim + 1)`` more)."""
+        carry = MAX_TILE * (carry_dim + 1) if carry_dim else 0
+        return 2 * MAX_TILE * self.ld + carry
+
+
 def supports_fused_mlp(dims: Sequence[int]) -> bool:
-    """Whether K2 and K3 take this chain, in f32 and in bf16: at most
-    ``MAX_PRODUCTS`` products of widths up to ``TC_MAX_WIDTH``, which always
-    leaves room for the weight ring. Any row count is fine (the kernels mask
-    the ragged last tile). On the card the wrappers raise where it is false."""
-    return 1 <= len(dims) - 1 <= MAX_PRODUCTS and all(1 <= d <= TC_MAX_WIDTH for d in dims)
+    """Whether K1, K2 and K3 take this chain on the card: any chain of at
+    least one product of positive widths, by the tensor-core chain or the
+    wide route (:func:`takes_chain`). Any row count is fine (the kernels mask
+    the ragged last tile)."""
+    return len(dims) >= 2 and all(d >= 1 for d in dims)
+
+
+def takes_chain(dims: Sequence[int], low_precision: bool, extra_bytes: int = 0) -> bool:
+    """Whether the tensor-core chain takes this stack (else the wide route
+    does): at most ``MAX_PRODUCTS`` products of widths up to ``TC_MAX_WIDTH``,
+    and room for two weight chunks beside the activation tile and
+    ``extra_bytes`` (K1's obs carry). Mirrors ``make_chain_desc``'s refusal."""
+    dims = tuple(dims)
+    return (1 <= len(dims) - 1 <= MAX_PRODUCTS and all(1 <= d <= TC_MAX_WIDTH for d in dims)
+            and ChainLayout(dims, low_precision).stages(extra_bytes) >= 2)
 
 
 def persistent_blocks(rows_per_member: int, num_members: int, num_sms: int) -> int:
@@ -434,18 +480,26 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_tiles(
-    stack: MLPStack, tiles: Optional[ChainTiles], device: torch.device, extra_bytes: int = 0
-) -> ChainTiles:
-    """The kernels' checks of the stack and its packed tiles (packed here if None)."""
+def _check_stack(stack: MLPStack, device: torch.device) -> None:
+    """What both routes need of the stack: types, device, and weights and
+    biases as many as its dims say."""
     if not supports_fused_mlp(stack.dims):
-        raise ValueError(
-            f"chain dims {stack.dims} exceed the kernels' limits "
-            f"({MAX_PRODUCTS} products, width {TC_MAX_WIDTH})"
-        )
+        raise ValueError(f"chain dims {stack.dims} are not a chain of positive widths")
     if stack.ws.dtype not in (torch.float32, torch.bfloat16) or stack.bs.dtype != torch.float32:
         raise TypeError(f"weights must be f32/bf16 and biases f32, got {stack.ws.dtype}/{stack.bs.dtype}")
     _check_cuda(device, ws=stack.ws, bs=stack.bs)
+    lay = WideLayout(stack.dims)
+    if (stack.ws.dim() != 2 or stack.ws.shape[1] != lay.member_elems
+            or tuple(stack.bs.shape) != (stack.num_members, lay.b_offset(stack.num_products))):
+        raise ValueError(f"stack {tuple(stack.ws.shape)} / {tuple(stack.bs.shape)} does not "
+                         f"match its dims {stack.dims}")
+
+
+def _check_tiles(
+    stack: MLPStack, tiles: Optional[ChainTiles], device: torch.device, extra_bytes: int = 0
+) -> ChainTiles:
+    """The chain route's checks of the packed tiles of a checked stack
+    (packed here if None)."""
     if tiles is None:
         tiles = pack_chain(stack)
     lay = tiles.layout
@@ -494,13 +548,31 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _device_dims(dims: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The wide route's descriptor in device memory: the chain's dims, made
+    once per (dims, device), so that a launch copies nothing from the host
+    (and can be captured in a CUDA graph)."""
+    return torch.tensor(dims, dtype=torch.int32, device=device)
+
+
+def _wide_args(stack: MLPStack, device: torch.device, blocks: int, carry_dim: int = 0):
+    """The wide entries' host dims and device dims, and a fresh scratch for
+    ``blocks`` blocks (the caller keeps it alive until the launch is
+    enqueued)."""
+    scratch = torch.empty(blocks * WideLayout(stack.dims).block_floats(carry_dim),
+                          dtype=torch.float32, device=device)
+    return _dims_arg(stack), _device_dims(stack.dims, device).data_ptr(), scratch
+
+
 def fused_ensemble_mlp(
     x: torch.Tensor, stack: MLPStack, tiles: Optional[ChainTiles] = None
 ) -> torch.Tensor:
     """K3: per-member-sharded ensemble forward, raw head. x (E, S, in) →
     (E, S, head_out), any head width (``2 * out`` of a Gaussian model, ``out``
     of a deterministic one). ``tiles`` is ``pack_chain(stack)``, packed here
-    when not given (pack once per rollout or model state)."""
+    when not given (pack once per rollout or model state); the wide route
+    reads the stack itself and ignores it."""
     if not _dispatch(x):
         return fused_ensemble_mlp_plain(x, stack)
     from mbrl_tpu_torch.ops.build import load_library
@@ -508,18 +580,27 @@ def fused_ensemble_mlp(
     e, rows, din = x.shape
     _check_f32(x=x)
     _check_cuda(x.device, x=x)
-    tiles = _check_tiles(stack, tiles, x.device)
+    _check_stack(stack, x.device)
     if e != stack.num_members or din != stack.dims[0] or rows < 1:
         raise ValueError(f"x {tuple(x.shape)} does not match stack dims {stack.dims} (E={stack.num_members})")
     out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
     lib = load_library()
-    code = lib.mbrl_ensemble_mlp(
-        x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
-        _dims_arg(stack), stack.num_products, e, rows,
-        persistent_blocks(rows, e, sm_count(x.device)),
-        ACTIVATION_CODES[stack.activation], int(stack.low_precision),
-        tiles.layout.member_elems, _stream(x.device),
-    )
+    blocks = persistent_blocks(rows, e, sm_count(x.device))
+    act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
+    if takes_chain(stack.dims, stack.low_precision):
+        tiles = _check_tiles(stack, tiles, x.device)
+        code = lib.mbrl_ensemble_mlp(
+            x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
+            _dims_arg(stack), stack.num_products, e, rows, blocks, act, low,
+            tiles.layout.member_elems, _stream(x.device),
+        )
+    else:
+        dims, dims_dev, scratch = _wide_args(stack, x.device, blocks)
+        code = lib.mbrl_ensemble_mlp_wide(
+            x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(), out.data_ptr(), dims,
+            dims_dev, stack.num_products, e, rows, blocks, act, low, stack.ws.shape[1],
+            scratch.data_ptr(), scratch.numel(), _stream(x.device),
+        )
     _raise_on_error(code, "fused_ensemble_mlp")
     fused_ensemble_mlp.launches += 1
     return out
@@ -538,7 +619,8 @@ def fused_ensemble_mlp_gaussian(
     """K2: one rollout step, (E, S, in) → (E, S, out_size): a draw from the
     bounded Gaussian head (two seed words from ``generator`` key the kernel's
     Philox), or the head's mean when ``sample=False``. ``tiles`` is
-    ``pack_chain(stack)``, packed here when not given (pack once per rollout)."""
+    ``pack_chain(stack)``, packed here when not given (pack once per rollout);
+    the wide route ignores it."""
     if not _dispatch(x):
         return fused_ensemble_mlp_gaussian_plain(
             generator, x, stack, max_logvar, min_logvar, out_size, sample
@@ -548,21 +630,33 @@ def fused_ensemble_mlp_gaussian(
     e, rows, din = x.shape
     _check_f32(x=x, max_logvar=max_logvar, min_logvar=min_logvar)
     _check_cuda(x.device, x=x, max_logvar=max_logvar, min_logvar=min_logvar)
-    tiles = _check_tiles(stack, tiles, x.device)
+    _check_stack(stack, x.device)
     if e != stack.num_members or din != stack.dims[0] or stack.dims[-1] != 2 * out_size:
         raise ValueError(f"x {tuple(x.shape)} / out_size {out_size} do not match stack dims {stack.dims}")
     if max_logvar.numel() != out_size or min_logvar.numel() != out_size:
         raise ValueError("logvar bounds must have out_size entries")
+    chain = takes_chain(stack.dims, stack.low_precision)
+    if chain:
+        tiles = _check_tiles(stack, tiles, x.device)
     s0, s1 = seed_words(generator, 2)
     out = torch.empty((e, rows, out_size), dtype=torch.float32, device=x.device)
     lib = load_library()
-    code = lib.mbrl_ensemble_mlp_gaussian(
-        s0, s1, x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
-        max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
-        _dims_arg(stack), stack.num_products, e, rows, out_size, int(sample),
-        ACTIVATION_CODES[stack.activation], int(stack.low_precision),
-        tiles.layout.member_elems, _stream(x.device),
-    )
+    act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
+    if chain:
+        code = lib.mbrl_ensemble_mlp_gaussian(
+            s0, s1, x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
+            max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
+            _dims_arg(stack), stack.num_products, e, rows, out_size, int(sample), act, low,
+            tiles.layout.member_elems, _stream(x.device),
+        )
+    else:
+        dims, dims_dev, scratch = _wide_args(stack, x.device, -(-rows // MAX_TILE) * e)
+        code = lib.mbrl_ensemble_mlp_gaussian_wide(
+            s0, s1, x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(),
+            max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(), dims, dims_dev,
+            stack.num_products, e, rows, out_size, int(sample), act, low, stack.ws.shape[1],
+            scratch.data_ptr(), scratch.numel(), _stream(x.device),
+        )
     _raise_on_error(code, "fused_ensemble_mlp_gaussian")
     fused_ensemble_mlp_gaussian.launches += 1
     return out
@@ -587,7 +681,8 @@ def fused_rollout_returns(
     rot_tiles (H,) int: cumulative tile-granular rotations; obs0_rows (B, D);
     acts_rows (B, H, A); delta_mask (1, D), 1 where the target is a delta.
     Requires D == out_size - 1, tile <= 64 dividing B into a multiple of E tiles.
-    ``tiles`` is ``pack_chain(stack)``, packed here when not given.
+    ``tiles`` is ``pack_chain(stack)``, packed here when not given; the wide
+    route ignores it.
     """
     if not _dispatch(obs0_rows):
         return fused_rollout_returns_plain(
@@ -614,18 +709,33 @@ def fused_rollout_returns(
                max_logvar=max_logvar, min_logvar=min_logvar)
     _check_cuda(obs0_rows.device, rot_tiles=rot_tiles, obs0_rows=obs0_rows, acts_rows=acts_rows,
                 delta_mask=delta_mask, max_logvar=max_logvar, min_logvar=min_logvar)
-    tiles = _check_tiles(stack, tiles, obs0_rows.device, extra_bytes=4 * MAX_TILE * (obs_dim + 1))
+    dev = obs0_rows.device
+    _check_stack(stack, dev)
+    carry_bytes = 4 * MAX_TILE * (obs_dim + 1)
+    chain = takes_chain(stack.dims, stack.low_precision, carry_bytes)
+    if chain:
+        tiles = _check_tiles(stack, tiles, dev, extra_bytes=carry_bytes)
     s0, s1 = seed_words(generator, 2)
-    out = torch.empty((batch, 1), dtype=torch.float32, device=obs0_rows.device)
+    out = torch.empty((batch, 1), dtype=torch.float32, device=dev)
     lib = load_library()
-    code = lib.mbrl_rollout_returns(
-        s0, s1, rot_tiles.data_ptr(), obs0_rows.data_ptr(), acts_rows.data_ptr(),
-        delta_mask.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
-        max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
-        _dims_arg(stack), stack.num_products, e, batch, obs_dim, act_dim, horizon,
-        out_size, tile, int(sample), ACTIVATION_CODES[stack.activation],
-        int(stack.low_precision), tiles.layout.member_elems, _stream(obs0_rows.device),
-    )
+    act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
+    common = (rot_tiles.data_ptr(), obs0_rows.data_ptr(), acts_rows.data_ptr(),
+              delta_mask.data_ptr())
+    bounds = (max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr())
+    if chain:
+        code = lib.mbrl_rollout_returns(
+            s0, s1, *common, tiles.w.data_ptr(), stack.bs.data_ptr(), *bounds,
+            _dims_arg(stack), stack.num_products, e, batch, obs_dim, act_dim, horizon,
+            out_size, tile, int(sample), act, low, tiles.layout.member_elems, _stream(dev),
+        )
+    else:
+        dims, dims_dev, scratch = _wide_args(stack, dev, batch // tile, carry_dim=obs_dim)
+        code = lib.mbrl_rollout_returns_wide(
+            s0, s1, *common, stack.ws.data_ptr(), stack.bs.data_ptr(), *bounds, dims, dims_dev,
+            stack.num_products, e, batch, obs_dim, act_dim, horizon, out_size, tile,
+            int(sample), act, low, stack.ws.shape[1], scratch.data_ptr(), scratch.numel(),
+            _stream(dev),
+        )
     _raise_on_error(code, "fused_rollout_returns")
     fused_rollout_returns.launches += 1
     return out

@@ -1,5 +1,6 @@
 """Agents and trajectory optimizers."""
 from mbrl_tpu_torch.planning.core import Agent, RandomAgent
+from mbrl_tpu_torch.planning.sac import SAC, SACAgent
 from mbrl_tpu_torch.planning.trajectory_opt import (
     CEMOptimizer,
     ICEMOptimizer,
@@ -17,6 +18,8 @@ __all__ = [
     "MPPIOptimizer",
     "Optimizer",
     "RandomAgent",
+    "SAC",
+    "SACAgent",
     "TrajectoryOptimizer",
     "TrajectoryOptimizerAgent",
     "create_trajectory_optim_agent_for_model",

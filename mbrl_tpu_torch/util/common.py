@@ -19,6 +19,22 @@ from mbrl_tpu_torch.util.replay_buffer import (
 )
 
 
+def reject_unported_parallel(cfg) -> None:
+    """The mesh and the env worker pool live in ``parallel/``, which is not
+    ported yet: asking for either raises instead of being ignored."""
+    parallel = cfg.get("parallel", None)
+    if parallel is not None and parallel.get("enable", False):
+        raise NotImplementedError(
+            "a `parallel` group other than `none` needs the slice that ports parallel/ "
+            "(mesh sharding); use parallel=none"
+        )
+    if int(cfg.overrides.get("num_env_workers", 0) or 0) > 0:
+        raise NotImplementedError(
+            "overrides.num_env_workers > 0 needs the slice that ports parallel/ "
+            "(the env worker pool); leave it at 0"
+        )
+
+
 def create_replay_buffer(
     cfg,
     obs_shape: Sequence[int],

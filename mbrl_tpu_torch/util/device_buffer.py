@@ -1,18 +1,165 @@
-"""Device-resident transition dataset (counterpart of
-``mbrl_tpu/util/device_buffer.py``).
+"""Device-resident buffers (counterpart of ``mbrl_tpu/util/device_buffer.py``).
 
-``DeviceTransitionDataset`` mirrors a host ``ReplayBuffer`` in device memory
-for ``ModelTrainer.train_device``: each sync moves only the rows written since
-the last one. ``DeviceReplayBuffer`` (MBPO's SAC buffer) comes with the MBPO
-slice.
+``DeviceReplayBuffer`` is MBPO's SAC buffer: a ring of (obs, act, next_obs,
+reward, mask) in device memory that imagined rollouts write and SAC updates
+sample, with no host round trip. ``DeviceTransitionDataset`` mirrors a host
+``ReplayBuffer`` in device memory for ``ModelTrainer.train_device``: each sync
+moves only the rows written since the last one.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.types import TransitionBatch
+
+Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def uniform_indices(
+    generator: torch.Generator, shape, num_stored: torch.Tensor
+) -> torch.Tensor:
+    """int64 indices uniform in ``[0, max(num_stored, 1))``, drawn on
+    ``num_stored``'s device from ``generator`` (on the same device), without
+    reading ``num_stored`` back to the host."""
+    n = torch.clamp(num_stored, min=1).to(torch.float64)
+    u = torch.rand(tuple(shape), generator=generator, device=num_stored.device,
+                   dtype=torch.float64)
+    return torch.minimum((u * n).long(), n.long() - 1)
+
+
+@dataclasses.dataclass
+class DeviceBufferState:
+    """The ring's tensors: ``capacity + 1`` rows (the last is the scratch row
+    that masked-out writes land in) and two 0-d int64 counters."""
+
+    obs: torch.Tensor
+    act: torch.Tensor
+    next_obs: torch.Tensor
+    reward: torch.Tensor  # (capacity + 1, 1)
+    mask: torch.Tensor  # (capacity + 1, 1): 1 - terminated (SAC convention)
+    cur_idx: torch.Tensor
+    num_stored: torch.Tensor
+
+    def arrays(self) -> Batch:
+        return self.obs, self.act, self.next_obs, self.reward, self.mask
+
+
+class DeviceReplayBuffer:
+    """Fixed-capacity device ring buffer of (obs, act, next_obs, reward, mask).
+
+    As the JAX package's, the buffer object holds the sizes and a
+    :class:`DeviceBufferState` holds the data; unlike it, the writes go into
+    the state's tensors in place (no second copy of the ring), and each method
+    returns the state it was given. The counters stay on the device, so
+    nothing here waits for the device except :meth:`resize`.
+    """
+
+    def __init__(self, capacity: int, obs_dim: int, act_dim: int, device: DeviceLike = "cuda"):
+        self.capacity = int(capacity)
+        self.obs_dim = obs_dim
+        self.act_dim = act_dim
+        self.device = resolve_device(device)
+
+    def init(self) -> DeviceBufferState:
+        c, dev = self.capacity + 1, self.device
+        return DeviceBufferState(
+            obs=torch.zeros((c, self.obs_dim), device=dev),
+            act=torch.zeros((c, self.act_dim), device=dev),
+            next_obs=torch.zeros((c, self.obs_dim), device=dev),
+            reward=torch.zeros((c, 1), device=dev),
+            mask=torch.ones((c, 1), device=dev),
+            cur_idx=torch.zeros((), dtype=torch.int64, device=dev),
+            num_stored=torch.zeros((), dtype=torch.int64, device=dev),
+        )
+
+    def _rows(self, obs, act, next_obs, reward, mask) -> Batch:
+        def f32(x, shape):
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device).reshape(shape)
+
+        return (f32(obs, (-1, self.obs_dim)), f32(act, (-1, self.act_dim)),
+                f32(next_obs, (-1, self.obs_dim)), f32(reward, (-1, 1)), f32(mask, (-1, 1)))
+
+    def _write(self, state: DeviceBufferState, positions: torch.Tensor, rows: Batch) -> None:
+        for dst, src in zip(state.arrays(), rows):
+            dst.index_put_((positions,), src)
+
+    def add_batch(
+        self, state: DeviceBufferState, obs, act, next_obs, reward, mask
+    ) -> DeviceBufferState:
+        """Ring-write a batch at ``cur_idx``. Of a batch longer than the ring
+        only its last ``capacity`` rows land (what the JAX package's scatter
+        leaves)."""
+        rows = self._rows(obs, act, next_obs, reward, mask)
+        n = rows[0].shape[0]
+        skip = max(n - self.capacity, 0)
+        k = n - skip
+        positions = (state.cur_idx + skip
+                     + torch.arange(k, dtype=torch.int64, device=self.device)) % self.capacity
+        self._write(state, positions, tuple(r[skip:] for r in rows))
+        state.cur_idx.copy_((state.cur_idx + n) % self.capacity)
+        state.num_stored.copy_(torch.clamp(state.num_stored + n, max=self.capacity))
+        return state
+
+    def add_batch_masked(
+        self, state: DeviceBufferState, obs, act, next_obs, reward, mask, valid
+    ) -> DeviceBufferState:
+        """Ring-write only the rows with ``valid`` true, packed into
+        consecutive slots by a cumulative sum; the others go to the scratch
+        row at index ``capacity``. No host sync (used inside MBPO's imagined
+        rollout, where particles die as they terminate)."""
+        rows = self._rows(obs, act, next_obs, reward, mask)
+        valid = torch.as_tensor(valid, device=self.device).reshape(-1).to(torch.int64)
+        offsets = torch.cumsum(valid, 0) - 1
+        n_valid = valid.sum()
+        positions = torch.where(valid.bool(), (state.cur_idx + offsets) % self.capacity,
+                                torch.full_like(offsets, self.capacity))
+        self._write(state, positions, rows)
+        state.cur_idx.copy_((state.cur_idx + n_valid) % self.capacity)
+        state.num_stored.copy_(torch.clamp(state.num_stored + n_valid, max=self.capacity))
+        return state
+
+    @staticmethod
+    def gather(state: DeviceBufferState, idx: torch.Tensor) -> Batch:
+        return tuple(a[idx] for a in state.arrays())
+
+    def sample(self, state: DeviceBufferState, generator: torch.Generator, batch_size: int) -> Batch:
+        """A uniform batch (obs, act, next_obs, reward, mask) of the stored rows."""
+        return self.gather(state, uniform_indices(generator, (batch_size,), state.num_stored))
+
+    def sample_many(
+        self, state: DeviceBufferState, generator: torch.Generator, num_batches: int,
+        batch_size: int,
+    ) -> Batch:
+        """Stacked batches (N, B, ...) for a bundle of updates."""
+        idx = uniform_indices(generator, (num_batches, batch_size), state.num_stored)
+        return self.gather(state, idx)
+
+    def resize(
+        self, state: DeviceBufferState, new_capacity: int
+    ) -> "Tuple[DeviceReplayBuffer, DeviceBufferState]":
+        """A buffer of ``new_capacity`` holding the newest transitions in
+        order (MBPO's ``maybe_replace_sac_buffer``). Reads the counters."""
+        new_buf = DeviceReplayBuffer(new_capacity, self.obs_dim, self.act_dim, self.device)
+        new_state = new_buf.init()
+        n = int(state.num_stored)
+        if n == 0:
+            return new_buf, new_state
+        keep = min(n, new_capacity)
+        end = int(state.cur_idx)
+        if n == self.capacity:
+            idx = (torch.arange(keep, device=self.device) + (end - keep)) % self.capacity
+        else:
+            idx = torch.arange(n - keep, n, device=self.device)
+        new_buf.add_batch(new_state, *self.gather(state, idx))
+        return new_buf, new_state
+
+    def __len__(self):
+        raise TypeError("DeviceReplayBuffer keeps its count on the device; use int(state.num_stored)")
 
 
 class DeviceTransitionDataset:

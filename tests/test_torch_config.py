@@ -23,6 +23,7 @@ CONF = REPO / "mbrl_tpu_torch" / "examples" / "conf"
 JAX_CONF = REPO / "mbrl_tpu" / "examples" / "conf"
 
 PETS_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("pets_*.yaml"))
+MBPO_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("*mbpo_*.yaml"))
 MODELS = ["gaussian_mlp", "gaussian_mlp_ensemble", "gaussian_mlp_ensemble_fast",
           "gaussian_mlp_ensemble_pallas"]
 
@@ -51,6 +52,16 @@ def test_every_pets_override_resolves_as_in_the_jax_tree(overrides):
     assert got == want
     assert got["algorithm"]["agent"]["optimizer"] == got["action_optimizer"]
     assert "${" not in str(got)
+
+
+@pytest.mark.parametrize("overrides", MBPO_OVERRIDES)
+def test_every_mbpo_override_resolves_as_in_the_jax_tree(overrides):
+    args = ["algorithm=mbpo", f"overrides={overrides}"]
+    got = to_dict(load_config(CONF, "main", overrides=args))
+    want = _repointed(jax_to_dict(jax_load_config(JAX_CONF, "main", overrides=args)))
+    assert got == want
+    assert got["algorithm"]["name"] == "mbpo" and got["algorithm"]["freq_train_model"] == \
+        got["overrides"]["freq_train_model"]
 
 
 @pytest.mark.parametrize("model", MODELS)
@@ -89,7 +100,8 @@ def test_every_target_and_obs_process_fn_in_the_port_tree_imports():
     for target in seen:
         assert target.startswith("mbrl_tpu_torch.") and callable(_import_target(target)), target
     copied = {p.relative_to(CONF) for p in CONF.rglob("*.yaml")}
-    assert {pathlib.Path("overrides") / f"{n}.yaml" for n in PETS_OVERRIDES} <= copied
+    assert {pathlib.Path("overrides") / f"{n}.yaml" for n in PETS_OVERRIDES + MBPO_OVERRIDES} <= copied
+    assert pathlib.Path("algorithm/mbpo.yaml") in copied
     assert pathlib.Path("parallel/none.yaml") in copied
 
 
@@ -110,6 +122,25 @@ def test_chip_smoke_config_e_is_the_loaded_tree_with_num_steps_cut():
     assert chip_smoke.E_PLANNED_STEPS >= 2 * loaded["algorithm"]["freq_train_model"]
 
 
+def test_chip_smoke_config_m_is_the_loaded_tree_with_its_cuts():
+    sys.path.insert(0, str(REPO))
+    try:
+        chip_smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(REPO))
+    loaded = to_dict(load_config(CONF, "main", overrides=[
+        "algorithm=mbpo", "overrides=mbpo_cartpole", "dynamics_model=gaussian_mlp_ensemble"]))
+    published = loaded["overrides"]["num_steps"]
+    assert published == 5000 and "dataset_size" not in loaded["algorithm"]
+    # the cuts: two epochs of the loop, the replay buffer kept at the published
+    # run's size; and the run saves model, buffer and checkpoint at each retraining
+    loaded["overrides"]["num_steps"] = chip_smoke.M_NUM_STEPS
+    loaded["algorithm"]["dataset_size"] = published
+    loaded["checkpoint_every"] = loaded["overrides"]["freq_train_model"]
+    assert chip_smoke.CONFIG_M == loaded
+    assert chip_smoke.M_NUM_STEPS == 2 * loaded["overrides"]["epoch_length"]
+
+
 def test_config_engine_basics():
     cfg = Config({"a": {"b": 1, "c": "${x.y}"}, "x": {"y": 7}, "m": "???"})
     resolve_interpolations(cfg)
@@ -123,7 +154,7 @@ def test_config_engine_basics():
     with pytest.raises(ValueError):
         parse_overrides(["novalue"])
     with pytest.raises(FileNotFoundError):
-        load_config(CONF, "main", overrides=["overrides=mbpo_halfcheetah"])  # not part of the port
+        load_config(CONF, "main", overrides=["overrides=planet_cheetah_run"])  # not part of the port
     cfg = load_config(CONF, "main", overrides=["overrides.model_lr=0.001", "seed=3"])
     assert cfg.overrides.model_lr == 1e-3 and cfg.seed == 3 and cfg.overrides.model_wd == 3e-5
     import pickle

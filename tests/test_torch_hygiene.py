@@ -7,6 +7,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,7 @@ def test_port_imports_neither_jax_nor_mbrl_tpu():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().splitlines()[-2:]
-    assert int(n) >= 35
+    assert int(n) >= 45
     assert bad == "[]", bad
 
 
@@ -69,7 +70,8 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
     """The card's machine has neither ``gymnasium`` nor ``pyyaml``: with both
     (and JAX and the JAX package) made unimportable, everything chip_smoke.py
     imports still imports, a ``Config`` is built from its dict, and the model,
-    the agent and the cartpole of config E are made from it."""
+    the agent and the cartpole of config E are made from it, and config M's
+    capped cartpole and a SAC learner."""
     mods = _chip_smoke_imports()
     assert "mbrl_tpu_torch.algorithms.pets" in mods or "mbrl_tpu_torch.algorithms" in mods
     code = (
@@ -99,6 +101,13 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
         "model = create_one_dim_tr_model(cfg, env.observation_space.shape, env.action_space.shape, device='cpu')\n"
         "agent = instantiate(complete_agent_cfg(env, cfg.algorithm.agent, device='cpu'), seed=1)\n"
         "obs, _ = env.reset(seed=0); env.step(env.action_space.sample())\n"
+        "from mbrl_tpu_torch.util.env import make_env\n"
+        "from mbrl_tpu_torch.planning import SAC\n"
+        "import torch\n"
+        "env_m, term_m, _ = make_env(Config(copy.deepcopy(chip_smoke.CONFIG_M)))\n"
+        "sac = SAC(4, env_m.action_space, hidden_size=8, device='cpu')\n"
+        "sac.init(torch.Generator().manual_seed(0))\n"
+        "env_m.reset(seed=0); env_m.step(env_m.action_space.sample())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "print(count, len(model), type(agent).__name__); print(bad)\n"
     )
@@ -137,6 +146,33 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         CEMOptimizer(1, 0.1, 10, [[0.0]], [[1.0]], alpha=0.1)
     GaussianMLP(4, 3, device="cpu")  # the explicit CPU path works
+
+
+def test_mbpo_entry_points_default_to_the_card(tmp_path):
+    """SAC, SACAgent (through its SAC), DeviceReplayBuffer and mbpo.train
+    default to device "cuda", which raises without a card; device="cpu"
+    runs them. (util.env.make_env builds host environments: no device.)"""
+    from mbrl_tpu_torch.algorithms import mbpo
+    from mbrl_tpu_torch.config import load_config
+    from mbrl_tpu_torch.envs.spaces import Box
+    from mbrl_tpu_torch.planning import SAC, SACAgent
+    from mbrl_tpu_torch.util.device_buffer import DeviceReplayBuffer
+    from mbrl_tpu_torch.util.env import make_env
+
+    _skip_on_a_card()
+    space = Box(-1.0, 1.0, shape=(1,))
+    with pytest.raises(RuntimeError, match="cuda"):
+        SAC(4, space)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceReplayBuffer(10, 4, 1)
+    cfg = load_config(PORT / "examples" / "conf", "main",
+                      overrides=["algorithm=mbpo", "overrides=mbpo_cartpole"])
+    env, term_fn, _ = make_env(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mbpo.train(env, env, term_fn, cfg, silent=True, work_dir=str(tmp_path))
+    sac = SAC(4, space, hidden_size=8, device="cpu")
+    SACAgent(sac, sac.init(torch.Generator().manual_seed(0))).act(np.zeros(4, np.float32))
+    DeviceReplayBuffer(10, 4, 1, device="cpu").init()
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -6,8 +6,8 @@ fused_ensemble_mlp), on the CPU: ``GaussianMLP._forward_sharded`` under
   the kernel's tile loop mirrors) covers every tile of every member once;
 - the widths: ``_forward_sharded`` goes through the wrapper at every width and
   matches mbrl_tpu's ``_forward_sharded`` on converted weights (1e-5, f32
-  float-sum order); what the kernels take on the card ends at 256 columns, and
-  the wrappers' check raises beyond it;
+  float-sum order); on the card the tensor-core chain takes up to 256 columns
+  and the wide route the rest;
 - the packed-weights cache: one pack over a rollout of steps, a fresh pack
   after ``set_elite`` and after new weights;
 - the plain chain leaves ``allow_tf32`` as the caller set it.
@@ -64,16 +64,19 @@ def _pair(hid, **kw):
 
 
 @pytest.mark.parametrize("deterministic", [False, True], ids=["gaussian", "deterministic"])
-@pytest.mark.parametrize("hid,kernel_takes_it", [(200, True), (248, True), (264, False)])
-def test_forward_sharded_width_gate(monkeypatch, hid, kernel_takes_it, deterministic):
+@pytest.mark.parametrize("hid,chain_takes_it", [(200, True), (248, True), (264, False)])
+def test_forward_sharded_width_gate(monkeypatch, hid, chain_takes_it, deterministic):
     """Every width goes through the K3 wrapper (on CPU tensors its plain
-    version, which has no limit); the card's kernel takes up to 256 columns."""
+    version, which has no limit); on the card the tensor-core chain takes up
+    to 256 columns and the wide route the rest."""
     calls = []
     orig = kernels.fused_ensemble_mlp
     monkeypatch.setattr(kernels, "fused_ensemble_mlp",
                         lambda *a, **k: calls.append(1) or orig(*a, **k))
     jm, tm, jp, tp = _pair(hid, deterministic=deterministic)
-    assert kernels.supports_fused_mlp(tm.packed(tp).stack.dims) == kernel_takes_it
+    dims = tm.packed(tp).stack.dims
+    assert kernels.supports_fused_mlp(dims)
+    assert kernels.takes_chain(dims, False) == chain_takes_it
     batch = 12
     x = np.random.default_rng(2).standard_normal((batch, IN)).astype(np.float32)
     perm = np.random.default_rng(3).permutation(batch)
@@ -89,14 +92,20 @@ def test_forward_sharded_width_gate(monkeypatch, hid, kernel_takes_it, determini
 
 def test_supports_fused_mlp_is_what_the_kernels_take():
     assert kernels.supports_fused_mlp((23, 256, 256, 36))
-    assert not kernels.supports_fused_mlp((23, 257, 36))
-    assert not kernels.supports_fused_mlp((23,) + (8,) * 9 + (36,))  # 10 products
-    # the wrappers' own check refuses exactly what it says is unsupported
+    # wider layers and deeper chains take the wide route instead of raising
+    assert kernels.supports_fused_mlp((23, 257, 36))
+    assert kernels.supports_fused_mlp((23,) + (8,) * 9 + (36,))  # 10 products
+    assert not kernels.takes_chain((23, 257, 36), False)
+    assert not kernels.takes_chain((23,) + (8,) * 9 + (36,), False)
+    # the wrappers' own check takes the wide stack; it refuses only what no
+    # route takes (here a stack whose weights do not match its dims)
     wide = kernels.pack_mlp([torch.zeros(1, 23, 257)], [torch.zeros(1, 1, 257)],
                             torch.zeros(1, 257, 36), torch.zeros(1, 1, 36), "silu")
+    kernels._check_stack(wide, torch.device("cpu"))
     with pytest.raises(ValueError):
-        kernels._check_tiles(wide, None, torch.device("cpu"))
-    # every supported width leaves room for the weight ring, in both dtypes
+        kernels._check_stack(kernels.MLPStack(wide.ws[:, 1:].contiguous(), wide.bs, wide.dims,
+                                              "silu"), torch.device("cpu"))
+    # every width the chain takes leaves room for the weight ring, in both dtypes
     for low in (False, True):
         assert kernels.ChainLayout((256, 256, 256), low).stages() >= 2
 

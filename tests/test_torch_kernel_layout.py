@@ -29,7 +29,7 @@ from mbrl_tpu_torch.ops import kernels as tk
 MAIN_DIMS = [(23, 200, 200, 200, 200, 36), (24, 200, 200, 200, 200, 36)]
 DET_DIMS = (24, 200, 200, 200, 200, 18)  # a deterministic model's head: out, not 2 * out
 RAGGED_DIMS = (7, 13, 30, 10)  # no width a multiple of 8
-WIDEST_DIMS = (24, 256, 256, 36)  # the widest layer the kernels take
+WIDEST_DIMS = (24, 256, 256, 36)  # the widest layer the tensor-core chain takes
 
 
 def _stack(dims, dtype, seed=0, e=2, activation="silu"):
@@ -188,8 +188,8 @@ def test_tensor_core_wrappers_refuse_what_they_cannot_take():
     stack = _stack((24, 200, 36), torch.float32)
     tiles = tk._check_tiles(stack, None, cpu)  # packs when not given
     assert tiles.layout == tk.ChainLayout((24, 200, 36), False)
-    with pytest.raises(ValueError):  # wider than the wgmma slots
-        tk._check_tiles(_stack((24, 264, 36), torch.float32), None, cpu)
+    # wider than the wgmma slots: the chain is not asked, the wide route takes it
+    assert not tk.takes_chain((24, 264, 36), False)
     with pytest.raises(ValueError):  # tiles of another stack
         tk._check_tiles(_stack((24, 64, 36), torch.float32), tiles, cpu)
     with pytest.raises(ValueError):  # the bf16 layout of the same dims

@@ -165,7 +165,9 @@ def test_pick_tile_and_supports():
     assert tk.pick_tile(16) == 16
     assert tk.pick_tile(7) is None  # no divisor in [8, 64]
     assert tk.supports_fused_mlp((24, 200, 200, 200, 200, 36))
-    assert not tk.supports_fused_mlp((24, 300, 36))
+    assert tk.takes_chain((24, 200, 200, 200, 200, 36), False)
+    # 300 columns: supported, by the wide route
+    assert tk.supports_fused_mlp((24, 300, 36)) and not tk.takes_chain((24, 300, 36), False)
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
