@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``mbrl_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase below
+    python3 chip_smoke.py --published-e   # config E alone at its published 5,000 steps
 
 Builds the CUDA kernels from ``mbrl_tpu_torch/csrc/`` (one nvcc per source, all
 at once): K1, K2 and K3 on the tensor-core chain (``tc_chain.cu``,
-``ensemble_mlp.cu``) and on the wide route (``wide_chain.cu``). Holds each
+``ensemble_mlp.cu``) and on the wide route (K1 and K2 on the tensor cores in
+``wide_tc.cu``, K3 in ``wide_chain.cu``). Holds each
 against its plain PyTorch version at the main paths' shapes (f32 and bf16; K3
 at 8,000 rows with a Gaussian and with a deterministic head, at 100,000 rows
 and at config M's 80,000; K2, mean path and samples, at the shapes of configs
@@ -32,8 +34,13 @@ full width (7-member GaussianMLP ensemble, 5 elites, 4x200 silu; CEM pop 400 x
      the host-iterator ``train``; loss and gradient on the card against the CPU
   MPPI (``pets_mppi_halfcheetah`` on B's model), iCEM (``pets_icem_cartpole``
   on E's trained model) and ``act_batch`` (4 environments, config B): K2
-  W  a 512-wide model: one ``act`` of A (K1) and of B (K2) and
-     ``GaussianMLP._forward_sharded`` (K3) against the CPU, all on the wide route
+  W  a 512-wide model: two ``act``s of A (K1) and of B (K2), the first on a
+     fresh agent, and ``GaussianMLP._forward_sharded`` (K3) against the CPU, all
+     on the wide route; then a warm ``act`` of B under the profiler
+  P  the propagation methods besides random_model, card against CPU:
+     ``fixed_model`` with its persistent indices (K3) and on a batch the elites
+     do not shard, ``expectation``, and the single-model ``gaussian_mlp.yaml``
+     (the plain member forward)
   M  a whole MBPO run, ``algorithms.mbpo.train`` on the port's cartpole
      (``util.env.make_env``: TimeLimit 200) at the published ``mbpo_cartpole``
      values (E=7, 5 elites, 4x200 silu, f32, double normalizer; 5,000 steps of
@@ -219,13 +226,26 @@ def check_k3(K, x, stack, dt_name: str, what: str):
     }
 
 
+def normal_moments(z: torch.Tensor, what: str):
+    """Mean, variance and kurtosis of ``z``, which must be N(0, 1): each
+    within five standard errors (the kurtosis' sqrt(24 / n), at least 0.1)."""
+    z = z.double().flatten()
+    n = z.numel()
+    zm, zv = float(z.mean()), float(z.var())
+    zk = float(((z - zm) ** 4).mean() / zv**2)
+    check(abs(zm) < 5 / n**0.5 and abs(zv - 1) < 5 * (2 / n) ** 0.5
+          and abs(zk - 3) < max(0.1, 5 * (24 / n) ** 0.5),
+          f"{what} samples are not N(0,1): mean {zm} var {zv} kurtosis {zk}")
+    return zm, zv, zk
+
+
 def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
     """K2 on ``x``: its mean path against its plain version, its samples
     against N(0,1), and its times and bound."""
     out = stack.dims[-1] // 2
     tol = TOL[("K2", dt_name)]
-    # the chain's layout, packed once as the rollout does (the wide route reads the stack)
-    tiles = K.pack_chain(stack) if K.takes_chain(stack.dims, stack.low_precision) else None
+    # the layout of its route, packed once as the rollout does
+    tiles = K.pack_tiles(stack)
     got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=False, tiles=tiles)
     ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out, sample=False)
     err, ok = max_err(got, ref, tol)
@@ -234,14 +254,7 @@ def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
     raw = K.fused_ensemble_mlp_plain(x, stack)
     sigma = torch.exp(0.5 * K.bound_logvar(raw[..., out:], max_lv, min_lv))
     draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=True, tiles=tiles)
-    z = ((draws - ref) / sigma).double().flatten()
-    n = z.numel()
-    zm, zv = float(z.mean()), float(z.var())
-    zk = float(((z - zm) ** 4).mean() / zv**2)
-    # five standard errors of each moment (the kurtosis': sqrt(24 / n))
-    check(abs(zm) < 5 / n**0.5 and abs(zv - 1) < 5 * (2 / n) ** 0.5
-          and abs(zk - 3) < max(0.1, 5 * (24 / n) ** 0.5),
-          f"K2 {dt_name} ({what}) samples are not N(0,1): mean {zm} var {zv} kurtosis {zk}")
+    zm, zv, zk = normal_moments((draws - ref) / sigma, f"K2 {dt_name} ({what})")
     e, rows, _ = x.shape
     flops = 2.0 * e * rows * macs_per_row(stack.dims)
     nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4 + 2 * out * 4
@@ -275,8 +288,7 @@ def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str):
     acts = seqs.repeat(PARTICLES, 1, 1).contiguous().to(dev)
     dmask = torch.ones((1, OBS_A), device=dev)
     args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, OBS_A + 1, tile)
-    carry = 4 * K.MAX_TILE * (OBS_A + 1)
-    tiles = K.pack_chain(stack) if K.takes_chain(stack.dims, stack.low_precision, carry) else None
+    tiles = K.pack_tiles(stack, 4 * K.MAX_TILE * (OBS_A + 1))
     got = K.fused_rollout_returns(g, *args, sample=False, tiles=tiles)
     ref = K.fused_rollout_returns_plain(g, *args, sample=False)
     err, ok = max_err(got, ref, TOL[("K1", dt_name)])
@@ -436,17 +448,21 @@ def activation_sweep():
     return errs
 
 
-def width_sweep():
+def width_sweep(device: str = "cuda"):
     """K3, K2 and K1 (mean paths) against their plain versions at each width
     of ``SWEEP_WIDTHS`` (two hidden layers: 256 is the chain's widest, the
     others take the wide route) and through a ``DEEP_PRODUCTS``-product chain
     64 wide (the wide route), f32 and bf16: K3 and K2 on ragged rows (100 a
-    member), K1 over 3 steps of 640 rows. Checks the route each took."""
+    member), K1 over 3 steps of 640 rows. Checks the route each took, and the
+    samples: K2's draws about its mean must be N(0, 1), and K1's sampled
+    returns must agree with the plain version's within standard error, row
+    by row over 16 launches each."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED + 10)
-    dev = torch.device("cuda")
-    errs = {}
+    dev = torch.device(device)
+    errs, samples = {}, {}
+    launches = 16
     for dt_name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for width in SWEEP_WIDTHS + ("deep",):
             hidden = (64,) * (DEEP_PRODUCTS - 1) if width == "deep" else (width, width)
@@ -482,11 +498,32 @@ def width_sweep():
                     else:
                         got = K.fused_ensemble_mlp(x, stack)
                         ref = K.fused_ensemble_mlp_plain(x, stack)
+                what = f"{name} {dt_name} at width {width} ({len(dims) - 1} products)"
                 err, ok = max_err(got, ref, TOL[(name, dt_name)])
-                check(ok, f"{name} {dt_name} at width {width} ({len(dims) - 1} products) "
-                          f"disagrees with its plain version: max abs err {err}")
+                check(ok, f"{what} disagrees with its plain version: max abs err {err}")
                 errs[f"{name}/{dt_name}/{width}"] = err
-    return errs
+                if name == "K2":
+                    raw = K.fused_ensemble_mlp_plain(x, stack)
+                    sigma = torch.exp(0.5 * K.bound_logvar(raw[..., out:], max_lv, min_lv))
+                    draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out)
+                    samples[f"K2/{dt_name}/{width}"] = normal_moments((draws - got) / sigma, what)
+                elif name == "K1":
+                    def runs(fn):
+                        r = torch.stack([fn(g, *args) for _ in range(launches)]).double()
+                        return r.mean(0), r.var(0)
+
+                    mk, vk = runs(K.fused_rollout_returns)
+                    mp, vp = runs(K.fused_rollout_returns_plain)
+                    # per row, z = dmean / se is ~t with ~30 degrees of freedom: its
+                    # square averages ~1.07 over the 640 rows (standard error ~0.06)
+                    z = (mk - mp) / ((vk + vp) / launches).sqrt()
+                    z_max, z2 = float(z.abs().max()), float((z**2).mean())
+                    ratio = float(vk.mean() / vp.mean())
+                    check(z_max < 7 and 0.7 < z2 < 1.5 and 0.8 < ratio < 1.25,
+                          f"{what}: sampled returns differ, max |dmean|/se {z_max}, mean "
+                          f"(dmean/se)^2 {z2}, var ratio {ratio}")
+                    samples[f"K1/{dt_name}/{width}"] = (z_max, z2, ratio)
+    return {"max_abs_err": errs, "samples": samples}
 
 
 def wide_kernel_checks():
@@ -614,9 +651,14 @@ def plan_config(name: str, device: str = "cuda", hid: int = HID, acts: int = 3):
     return times
 
 
-def device_busy(name: str, acts: int = 2):
+PORT_KERNELS = ("rollout_returns_tc_kernel", "gaussian_tc_kernel", "ensemble_mlp_tc_kernel",
+                "rollout_returns_wide_tc_kernel", "gaussian_wide_tc_kernel",
+                "ensemble_mlp_wide_kernel")
+
+
+def device_busy(name: str, acts: int = 2, hid: int = HID):
     """Warm ``act``s of config A, B or D under ``torch.profiler`` (``profile_busy``)."""
-    agent, obs_dim = make_agent(name)
+    agent, obs_dim = make_agent(name, hid=hid)
     rng = np.random.default_rng(SEED)
     agent.act((0.1 * rng.standard_normal(obs_dim)).astype(np.float32))
 
@@ -624,8 +666,7 @@ def device_busy(name: str, acts: int = 2):
         for _ in range(acts):
             agent.act((0.1 * rng.standard_normal(obs_dim)).astype(np.float32))
 
-    return {"acts": acts, **profile_busy(run, ("rollout_returns_tc_kernel", "gaussian_tc_kernel",
-                                               "ensemble_mlp_tc_kernel"))}
+    return {"acts": acts, **profile_busy(run, PORT_KERNELS)}
 
 
 def run_steps(env, state, obs_dim: int, device: str, g: torch.Generator, rows: int, steps: int,
@@ -1137,14 +1178,15 @@ def act_batch_config_b(device: str = "cuda", workers: int = 4):
 # The wide route on the main path's entry points
 # --------------------------------------------------------------------------- #
 def wide_paths(device: str = "cuda"):
-    """A ``WIDE_HID``-wide model through the entry points: one ``act`` of
-    config A (K1) and of config B (K2), and ``GaussianMLP._forward_sharded``
-    (K3) on the card against the same model on the CPU."""
+    """A ``WIDE_HID``-wide model through the entry points: two ``act``s of
+    config A (K1) and of config B (K2), the first of each on a fresh agent
+    (it packs the model), and ``GaussianMLP._forward_sharded`` (K3) on the
+    card against the same model on the CPU."""
     from mbrl_tpu_torch.models import GaussianMLP
     from mbrl_tpu_torch.ops import kernels as K
 
-    out = {"act_ms_A": plan_config("A", device, hid=WIDE_HID, acts=1),
-           "act_ms_B": plan_config("B", device, hid=WIDE_HID, acts=1)}
+    out = {"act_ms_A": plan_config("A", device, hid=WIDE_HID, acts=2),
+           "act_ms_B": plan_config("B", device, hid=WIDE_HID, acts=2)}
     vals = {}
     rows = BATCH
     x = torch.randn((rows, OBS_B + ACT), generator=torch.Generator().manual_seed(SEED + 12))
@@ -1162,6 +1204,68 @@ def wide_paths(device: str = "cuda"):
     check(all(max_err(a, b, tol)[1] for a, b in zip(vals[device], vals["cpu"])),
           f"_forward_sharded at {WIDE_HID} columns: card vs CPU max abs err {err} (tol {tol})")
     out["forward_sharded_max_abs_err"] = err
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The propagation methods besides random_model, card against CPU
+# --------------------------------------------------------------------------- #
+PROPAGATION_CASES = {  # name: (members, propagation_method, rows, K3 launches on the card)
+    # TSinf with its persistent propagation_indices: 1,600 rows a member over
+    # the 5 elites, through _forward_sharded (K3)
+    "fixed_model": (ENSEMBLE, "fixed_model", BATCH, 1),
+    # a batch the elites do not shard: the member forward and a gather, as
+    # the JAX package computes it outside any Pallas kernel
+    "fixed_model_unsharded": (ENSEMBLE, "fixed_model", BATCH + 1, 0),
+    # the mean over the elites' member forwards
+    "expectation": (ENSEMBLE, "expectation", BATCH, 0),
+    # dynamics_model/gaussian_mlp.yaml: one member, propagation null
+    "single_model": (1, None, BATCH, 0),
+}
+
+
+def propagation_paths(device: str = "cuda"):
+    """``GaussianMLP.forward_propagated``, the step ``ModelEnv`` takes, on the
+    card against the same model on the CPU, on identical inputs (config B's
+    widths: in 24, out 18, 4 x 200 silu, f32), for each of
+    ``PROPAGATION_CASES``: its route (K3 launches, or the plain member
+    forward of ``models/gaussian_mlp.py``), and the worst error of the mean
+    and the bounded logvar."""
+    from mbrl_tpu_torch.models import GaussianMLP
+    from mbrl_tpu_torch.ops import kernels as K
+
+    out = {}
+    tol = TOL[("K3", "f32")]
+    for name, (members, method, rows, want_k3) in PROPAGATION_CASES.items():
+        g = torch.Generator().manual_seed(SEED + 40)
+        x = torch.randn((rows, OBS_B + ACT), generator=g)
+        indices = torch.randperm(rows, generator=g)  # the persistent assignment
+        vals = {}
+        for dev in (device, "cpu"):
+            model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, members, HID, activation="silu",
+                                propagation_method=method, device=dev)
+            params = model.init(torch.Generator().manual_seed(SEED + 41))
+            if members > 1:
+                params = model.set_elite(params, list(range(ELITES)))
+            K.reset_launch_counts()
+            mean, logvar = model.forward_propagated(params, x.to(dev),
+                                                    propagation_indices=indices.to(dev))
+            sync(dev)
+            if dev == device:
+                launches = K.launch_counts()
+            vals[dev] = (mean.float().cpu(), logvar.float().cpu())
+        for v in vals[device]:
+            check(tuple(v.shape) == (rows, OBS_B), f"propagation {name}: shape {tuple(v.shape)}")
+        errs = [max_err(a, b, tol) for a, b in zip(vals[device], vals["cpu"])]
+        err = max(e for e, _ in errs)
+        check(all(ok for _, ok in errs),
+              f"propagation {name}: card vs CPU max abs err {err} (tol {tol})")
+        if device == "cuda":
+            want = {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0,
+                    "fused_ensemble_mlp": want_k3}
+            check(launches == want, f"propagation {name}: expected launches {want}, got {launches}")
+        out[name] = {"route": "K3" if want_k3 else "plain member forward", "rows": rows,
+                     "k3_launches": launches["fused_ensemble_mlp"], "max_abs_err": err, "tol": tol}
     return out
 
 
@@ -1484,7 +1588,38 @@ def mbpo_kernel_checks():
     return results
 
 
-def main() -> int:
+def published_config_e() -> int:
+    """Config E alone at the published ``num_steps`` (5,000 planned steps,
+    100 retrainings): its trial rewards, plan and retraining times, and the
+    launches, all checked as in the default run."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    steps = 5000
+    print(f"config E at its published num_steps {steps}", flush=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    numbers, _, _, work_dir = pets_config_e(planned_steps=steps)
+    counts = K.launch_counts()
+    shutil.rmtree(work_dir, ignore_errors=True)
+    want = {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": numbers["planned_steps"] * 5 * 15,
+            "fused_ensemble_mlp": 0}
+    check(counts == want, f"config E: expected launches {want}, got {counts}")
+    print("config E pets.train, published length: " + json.dumps(numbers) + f"  launches {counts}",
+          flush=True)
+    print(json.dumps({"E_published": {k: numbers[k] for k in (
+        "planned_steps", "retrainings", "total_s", "best_episode_reward", "act_ms_median",
+        "epoch_ms_mean", "gradient_steps_per_s")}, "total_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--published-e", action="store_true",
+                        help="after the build, run config E alone at its published num_steps "
+                             "(5,000) instead of the default phases")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA device",
               file=sys.stderr)
@@ -1500,10 +1635,16 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({build.library_path().name}"
           f"{', already built' if cached else ''})", flush=True)
+    if args.published_e:
+        published_config_e()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     results = kernel_checks()
     print("activations, ragged rows (max abs err): " + json.dumps(activation_sweep()), flush=True)
-    print("width sweep (max abs err): " + json.dumps(width_sweep()), flush=True)
+    print("width sweep: " + json.dumps(width_sweep()), flush=True)
     results.update(wide_kernel_checks())
     results.update(mbpo_kernel_checks())
 
@@ -1574,12 +1715,20 @@ def main() -> int:
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
-    # the wide route on the entry points: one act of A (5 K1) and of B (150 K2),
-    # one _forward_sharded (K3)
+    # the wide route on the entry points: two acts of A (5 K1 each) and of B
+    # (150 K2 each), one _forward_sharded (K3); then a warm act of B under the
+    # profiler
     wide, counts_w = counted(wide_paths)
     print(f"{WIDE_HID}-wide model: " + json.dumps(wide) + f"  launches {counts_w}", flush=True)
-    want_w = {"fused_rollout_returns": 5, k2: 5 * HORIZON, "fused_ensemble_mlp": 1}
+    want_w = {"fused_rollout_returns": 2 * 5, k2: 2 * 5 * HORIZON, "fused_ensemble_mlp": 1}
     check(counts_w == want_w, f"{WIDE_HID}-wide model: expected launches {want_w}, got {counts_w}")
+    print(f"device profile, config B at {WIDE_HID} wide: "
+          + json.dumps(device_busy("B", acts=1, hid=WIDE_HID)), flush=True)
+
+    # the propagation methods random_model leaves out: each case counted on
+    # its own (K3 for fixed_model on a batch the elites shard, else none)
+    props, _ = counted(propagation_paths)
+    print("propagation methods, card vs CPU: " + json.dumps(props), flush=True)
 
     # config M: the MBPO loop. K3 alone, one launch per imagined step
     k3 = "fused_ensemble_mlp"
@@ -1603,7 +1752,8 @@ def main() -> int:
     # steps, M's imagined rollouts; the wide route's rows at 512 columns
     chain = {"K1": "mbrl_tpu_torch/csrc/tc_chain.cu", "K2": "mbrl_tpu_torch/csrc/tc_chain.cu",
              "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
-    wide_src = "mbrl_tpu_torch/csrc/wide_chain.cu"
+    wide_src = {"K1": "mbrl_tpu_torch/csrc/wide_tc.cu", "K2": "mbrl_tpu_torch/csrc/wide_tc.cu",
+                "K3": "mbrl_tpu_torch/csrc/wide_chain.cu"}
     rows = {  # row: (wrapper, the main path's dtype, its launches there, source)
         "K1": ("fused_rollout_returns", "bf16", counts_a["fused_rollout_returns"], chain["K1"]),
         "K2": (k2, "f32", counts_b[k2], chain["K2"]),
@@ -1614,9 +1764,9 @@ def main() -> int:
         "K3@C100k": (k3, "f32", counts_c100[k3], chain["K3"]),
         "K3@D": (k3, "f32", counts_d[k3], chain["K3"]),
         "K3@M": (k3, "f32", counts_m[k3], chain["K3"]),
-        "K1@W512": ("fused_rollout_returns", "bf16", counts_w["fused_rollout_returns"], wide_src),
-        "K2@W512": (k2, "f32", counts_w[k2], wide_src),
-        "K3@W512": (k3, "f32", counts_w[k3], wide_src),
+        "K1@W512": ("fused_rollout_returns", "bf16", counts_w["fused_rollout_returns"], wide_src["K1"]),
+        "K2@W512": (k2, "f32", counts_w[k2], wide_src["K2"]),
+        "K3@W512": (k3, "f32", counts_w[k3], wide_src["K3"]),
     }
     stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
     line = []
@@ -1645,7 +1795,9 @@ def main() -> int:
         })
     print(json.dumps({"act_ms": {"A": times_a, "B": times_b, "D": times_d, "mppi": times_mppi,
                                  "icem": times_icem, "act_batch": times_batch,
-                                 "E_median": pets_numbers["act_ms_median"]},
+                                 "E_median": pets_numbers["act_ms_median"],
+                                 "W_A": wide["act_ms_A"], "W_B": wide["act_ms_B"]},
+                      "propagation_max_abs_err": {k: v["max_abs_err"] for k, v in props.items()},
                       "step_ms": {"C8k": times_c8, "C100k": times_c100},
                       "mbpo_M": {k: mbpo_numbers[k] for k in (
                           "env_step_ms_median", "retrain_ms", "rollout_ms", "sac_updates_per_s",

@@ -1,5 +1,5 @@
 // The Gaussian head's sampler that K1 and K2 share on both routes (the chain
-// in tc_chain.cu, the wide route in wide_chain.cu): the bounded log-variance,
+// in tc_chain.cu, the wide route in wide_tc.cu): the bounded log-variance,
 // Philox4x32-10, 24-bit uniforms and Box-Muller as
 // mbrl_tpu/ops/pallas_kernels.py:201-207 and :367-373.
 #pragma once

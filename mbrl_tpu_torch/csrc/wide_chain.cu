@@ -1,17 +1,10 @@
-// The wide route of the three kernels K1, K2 and K3 (sm_90a), written by hand.
-//
-// Replaces the same Pallas TPU kernels of mbrl_tpu/ops/pallas_kernels.py as the
-// tensor-core chain (tc_chain.cu, ensemble_mlp.cu), for the stacks the chain
-// does not take:
-//   K1 rollout_returns_wide_kernel <- fused_rollout_returns / _rollout_kernel
-//   K2 gaussian_wide_kernel        <- fused_ensemble_mlp_gaussian / _gaussian_kernel
-//   K3 ensemble_mlp_wide_kernel    <- fused_ensemble_mlp / _kernel
-// The wrappers in ops/kernels.py launch this route, through the same entry
-// points' siblings and with the same grid and launch count, whenever the chain
-// as it stands does not fit (kernels.takes_chain): a layer wider than 256
-// columns, more than MAX_PRODUCTS products, or, in K1, no room for two weight
-// chunks beside the obs carry. Widest layer it takes: any (a row of the
-// activation scratch holds the widest layer of the chain); deepest chain: any.
+// The wide route of K3 (sm_90a), written by hand: ensemble_mlp_wide_kernel
+// replaces fused_ensemble_mlp / _kernel of mbrl_tpu/ops/pallas_kernels.py, as
+// the tensor-core chain (ensemble_mlp.cu) does, for the stacks the chain does
+// not take (kernels.takes_chain): a layer wider than 256 columns or more than
+// MAX_PRODUCTS products. Widest layer it takes: any (a row of the activation
+// scratch holds the widest layer of the chain); deepest chain: any. The wide
+// route of K1 and K2 runs on the tensor cores (wide_tc.cu).
 //
 // What bounds it: operations, on the CUDA cores. A 64-row tile costs
 // 64 x sum(d_in x d_out) fused multiply-adds in f32 (67 TFLOP/s on an H100,
@@ -19,14 +12,13 @@
 // member's weights read from L2.
 //
 // Design: right first, simple; its speed is later work.
-// - Same grid as the chain: K1 one block per row tile, K2 one per (64-row
-//   tile, member), K3 the persistent grid of ops/kernels.py:persistent_blocks.
+// - The persistent grid of ops/kernels.py:persistent_blocks, as the chain's.
 //   256 threads, no producer warp, 25 KB of static shared memory.
 // - A tile's activations live in a scratch region of the block's own in
 //   device memory, two buffers of 64 x ld f32 (ld = the widest layer), layer
-//   input and output in turn; at the main shapes it stays in L2. K1 keeps its
-//   obs carry and running return there too. The wrapper allocates the scratch
-//   (ops/kernels.py:WideLayout) and the kernel allocates nothing.
+//   input and output in turn; at the main shapes it stays in L2. The wrapper
+//   allocates the scratch (ops/kernels.py:WideLayout) and the kernel
+//   allocates nothing.
 // - The chain's descriptor comes through device memory: the dims array
 //   (num_products + 1 ints); a product's weight and bias offsets are running
 //   sums, so nothing bounds the depth.
@@ -39,10 +31,8 @@
 // - Rounding: a bf16 stack rounds the input and every hidden activation to
 //   bf16 where the chain does (when they are written to the scratch), with
 //   bf16 weights and f32 sums; an f32 stack multiplies in plain f32 (no TF32),
-//   so it differs from the plain versions by summation order only.
-// - Epilogues as the chain's: K3 the raw head, K2 the bounded log-variance and
-//   the Gaussian sample with the same Philox counters (gaussian_head.cuh), K1
-//   the obs carry and the running return.
+//   so it differs from the plain version by summation order only.
+// - The epilogue writes the raw head, as the chain's.
 //
 // Plain C interface, loaded with ctypes; every entry returns
 // cudaGetLastError() after its launch.
@@ -50,7 +40,6 @@
 #include <limits.h>
 
 #include "common.cuh"
-#include "gaussian_head.cuh"
 
 #define WIDE_ROWS 64      // rows of one tile (the chain's TC_ROWS)
 #define WIDE_THREADS 256  // 8 warps: warp w sums rows 8w..8w+7, lane l columns 4l..4l+3
@@ -195,103 +184,6 @@ ensemble_mlp_wide_kernel(const float* __restrict__ x, const unsigned char* __res
 }
 
 // ---------------------------------------------------------------------------
-// K2: grid = (ceil(S / 64), E). x (E, S, in) f32 -> out (E, S, out_size) f32:
-// a draw from the bounded Gaussian head, or its mean when sample == 0.
-template <int ACT, bool BF16>
-__global__ void __launch_bounds__(WIDE_THREADS)
-gaussian_wide_kernel(uint32_t seed0, uint32_t seed1, const float* __restrict__ x,
-                     const unsigned char* __restrict__ ws, const float* __restrict__ bs,
-                     const float* __restrict__ max_lv, const float* __restrict__ min_lv,
-                     float* __restrict__ out, const int* __restrict__ dims, int num_products,
-                     long long w_member, int b_member, float* scratch, int ld,
-                     long long block_floats, int S, int out_size, int sample) {
-  __shared__ __align__(16) WideSmem sm;
-  constexpr int ESIZE = BF16 ? 2 : 4;
-  const int e = blockIdx.y;
-  const int row0 = blockIdx.x * WIDE_ROWS;
-  const int rows = min(WIDE_ROWS, S - row0);
-  float* buf = scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * block_floats;
-  const int din = __ldg(dims);
-  stage_input<BF16>(buf, ld, x + ((size_t)e * S + row0) * din, din, rows);
-  __syncthreads();
-  const float* head = wide_chain<ACT, BF16>(dims, num_products,
-                                            ws + (size_t)e * w_member * ESIZE,
-                                            bs + (size_t)e * b_member, buf, ld, sm);
-  const uint2 key = make_uint2(seed0, seed1);
-  float* o = out + ((size_t)e * S + row0) * out_size;
-  for (int idx = threadIdx.x; idx < rows * out_size; idx += WIDE_THREADS) {
-    const int r = idx / out_size, c = idx - r * out_size;
-    const uint4 ctr = make_uint4((uint32_t)(row0 + r), (uint32_t)c, 0u, (uint32_t)e);
-    o[idx] = head_draw(head[(size_t)r * ld + c], head[(size_t)r * ld + out_size + c],
-                       __ldg(max_lv + c), __ldg(min_lv + c), sample, ctr, key);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1: the whole H-step rollout, grid = (num_tiles,), one block per row tile
-// of `tile` (<= 64) rows looping over the steps, with the member schedule of
-// rollout_returns_tc_kernel. The obs carry (64 x obs_dim) and the running
-// return (64) follow the two activation buffers in the block's scratch.
-template <int ACT, bool BF16>
-__global__ void __launch_bounds__(WIDE_THREADS)
-rollout_returns_wide_kernel(uint32_t seed0, uint32_t seed1, const int* __restrict__ rot,
-                            const float* __restrict__ obs0, const float* __restrict__ acts,
-                            const float* __restrict__ dmask, const unsigned char* __restrict__ ws,
-                            const float* __restrict__ bs, const float* __restrict__ max_lv,
-                            const float* __restrict__ min_lv, float* __restrict__ out,
-                            const int* __restrict__ dims, int num_products, long long w_member,
-                            int b_member, float* scratch, int ld, long long block_floats,
-                            int obs_dim, int act_dim, int horizon, int out_size, int tile,
-                            int num_tiles, int tiles_per_member, int sample) {
-  __shared__ __align__(16) WideSmem sm;
-  constexpr int ESIZE = BF16 ? 2 : 4;
-  const int i = blockIdx.x;
-  const int row0 = i * tile;
-  float* buf = scratch + (size_t)i * block_floats;
-  float* obs = buf + 2 * (size_t)WIDE_ROWS * ld;
-  float* total = obs + (size_t)WIDE_ROWS * obs_dim;
-  const int din = obs_dim + act_dim;
-  const uint2 key = make_uint2(seed0, seed1);
-  for (int idx = threadIdx.x; idx < tile * obs_dim; idx += WIDE_THREADS)
-    obs[idx] = obs0[(size_t)row0 * obs_dim + idx];
-  for (int r = threadIdx.x; r < WIDE_ROWS; r += WIDE_THREADS) total[r] = 0.0f;
-  __syncthreads();
-  for (int t = 0; t < horizon; ++t) {
-    const int m = ((i + rot[t]) % num_tiles) / tiles_per_member;
-    // x = concat(obs, act_t), zero past the tile
-    for (int idx = threadIdx.x; idx < WIDE_ROWS * din; idx += WIDE_THREADS) {
-      const int r = idx / din, c = idx - r * din;
-      float v = 0.0f;
-      if (r < tile) {
-        v = c < obs_dim ? obs[r * obs_dim + c]
-                        : acts[((size_t)(row0 + r) * horizon + t) * act_dim + (c - obs_dim)];
-      }
-      buf[(size_t)r * ld + c] = BF16 ? round_bf16(v) : v;
-    }
-    __syncthreads();
-    const float* head = wide_chain<ACT, BF16>(dims, num_products,
-                                              ws + (size_t)m * w_member * ESIZE,
-                                              bs + (size_t)m * b_member, buf, ld, sm);
-    // one thread per (row, output column): the last column is the learned
-    // reward, the others are delta (dmask = 1) or absolute next-obs targets
-    for (int idx = threadIdx.x; idx < tile * out_size; idx += WIDE_THREADS) {
-      const int r = idx / out_size, c = idx - r * out_size;
-      const uint4 ctr = make_uint4((uint32_t)(row0 + r), (uint32_t)c, (uint32_t)t, (uint32_t)i);
-      const float pred = head_draw(head[(size_t)r * ld + c], head[(size_t)r * ld + out_size + c],
-                                   __ldg(max_lv + c), __ldg(min_lv + c), sample, ctr, key);
-      if (c < out_size - 1) {
-        const float dm = dmask[c];
-        obs[r * obs_dim + c] = dm * (obs[r * obs_dim + c] + pred) + (1.0f - dm) * pred;
-      } else {
-        total[r] += pred;
-      }
-    }
-    __syncthreads();
-  }
-  for (int r = threadIdx.x; r < tile; r += WIDE_THREADS) out[row0 + r] = total[r];
-}
-
-// ---------------------------------------------------------------------------
 // Host side
 
 // A stack's sizes from its host dims: weight elements and biases per member
@@ -320,10 +212,6 @@ static bool wide_sizes(const int* dims, int num_products, long long* w_member, i
   KERNEL<ACT, BF16><<<grid, WIDE_THREADS, 0, stream>>>(__VA_ARGS__);
 #define LAUNCH_K3W(ACT, BF16, grid, stream, ...) \
   LAUNCH_WIDE(ensemble_mlp_wide_kernel, ACT, BF16, grid, stream, __VA_ARGS__)
-#define LAUNCH_K2W(ACT, BF16, grid, stream, ...) \
-  LAUNCH_WIDE(gaussian_wide_kernel, ACT, BF16, grid, stream, __VA_ARGS__)
-#define LAUNCH_K1W(ACT, BF16, grid, stream, ...) \
-  LAUNCH_WIDE(rollout_returns_wide_kernel, ACT, BF16, grid, stream, __VA_ARGS__)
 
 extern "C" {
 
@@ -352,56 +240,6 @@ int mbrl_ensemble_mlp_wide(const float* x, const void* ws, const float* bs, floa
   const unsigned char* w = static_cast<const unsigned char*>(ws);
   DISPATCH(act, bf16, LAUNCH_K3W, grid, s, x, w, bs, out, dims_dev, num_products, w_member,
            b_member, scratch, ld, block_floats, rows, num_tiles, (int)total)
-  return cudaGetLastError();
-}
-
-int mbrl_ensemble_mlp_gaussian_wide(unsigned int seed0, unsigned int seed1, const float* x,
-                                    const void* ws, const float* bs, const float* max_lv,
-                                    const float* min_lv, float* out, const int* dims,
-                                    const int* dims_dev, int num_products, int num_members,
-                                    int rows, int out_size, int sample, int act, int bf16,
-                                    long long w_elems, float* scratch, long long scratch_floats,
-                                    void* stream) {
-  long long w_member;
-  int b_member, ld;
-  if (!wide_sizes(dims, num_products, &w_member, &b_member, &ld) || rows < 1 ||
-      num_members < 1 || dims[num_products] != 2 * out_size || w_member != w_elems)
-    return cudaErrorInvalidValue;
-  const dim3 grid((rows + WIDE_ROWS - 1) / WIDE_ROWS, num_members);
-  const long long block_floats = 2LL * WIDE_ROWS * ld;
-  if (scratch_floats < (long long)grid.x * grid.y * block_floats) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned char* w = static_cast<const unsigned char*>(ws);
-  DISPATCH(act, bf16, LAUNCH_K2W, grid, s, seed0, seed1, x, w, bs, max_lv, min_lv, out, dims_dev,
-           num_products, w_member, b_member, scratch, ld, block_floats, rows, out_size, sample)
-  return cudaGetLastError();
-}
-
-int mbrl_rollout_returns_wide(unsigned int seed0, unsigned int seed1, const int* rot,
-                              const float* obs0, const float* acts, const float* dmask,
-                              const void* ws, const float* bs, const float* max_lv,
-                              const float* min_lv, float* out, const int* dims,
-                              const int* dims_dev, int num_products, int num_members, int batch,
-                              int obs_dim, int act_dim, int horizon, int out_size, int tile,
-                              int sample, int act, int bf16, long long w_elems, float* scratch,
-                              long long scratch_floats, void* stream) {
-  long long w_member;
-  int b_member, ld;
-  if (!wide_sizes(dims, num_products, &w_member, &b_member, &ld) ||
-      dims[num_products] != 2 * out_size || dims[0] != obs_dim + act_dim ||
-      obs_dim != out_size - 1 || tile < 1 || tile > WIDE_ROWS || batch % tile != 0 ||
-      w_member != w_elems)
-    return cudaErrorInvalidValue;
-  const int num_tiles = batch / tile;
-  if (num_members < 1 || num_tiles % num_members != 0) return cudaErrorInvalidValue;
-  const long long block_floats = 2LL * WIDE_ROWS * ld + (long long)WIDE_ROWS * (obs_dim + 1);
-  if (scratch_floats < (long long)num_tiles * block_floats) return cudaErrorInvalidValue;
-  const dim3 grid(num_tiles);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned char* w = static_cast<const unsigned char*>(ws);
-  DISPATCH(act, bf16, LAUNCH_K1W, grid, s, seed0, seed1, rot, obs0, acts, dmask, w, bs, max_lv,
-           min_lv, out, dims_dev, num_products, w_member, b_member, scratch, ld, block_floats,
-           obs_dim, act_dim, horizon, out_size, tile, num_tiles, num_tiles / num_members, sample)
   return cudaGetLastError();
 }
 

@@ -14,8 +14,14 @@ trivial termination, a stochastic head and a row tile that divides the member
 shard), the whole horizon is one call of
 :func:`~mbrl_tpu_torch.ops.kernels.fused_rollout_returns`. Otherwise every step's
 member chain is one call of K2 (stochastic head) or K3 (deterministic head).
-Each wrapper launches its CUDA kernel on CUDA tensors (and raises on a model
-wider than the kernels take) and runs its plain PyTorch version on CPU tensors.
+Each wrapper runs its plain PyTorch version on CPU tensors and launches its
+CUDA kernel on CUDA tensors, at any width and depth: the tensor-core chain for
+up to ``MAX_PRODUCTS`` products of at most 256 columns, else the wide route
+(K1 and K2 on the tensor cores with the wide route's tiles, K3 by f32 FMA),
+as :func:`~mbrl_tpu_torch.ops.kernels.takes_chain` picks. The tiles are the
+model state's (``GaussianMLP.packed``). A wrapper raises only for weights of
+another dtype than f32 or bf16, and for a stack or tiles that do not match
+its dims.
 
 Semantics match the generic path distribution-for-distribution; random
 streams are consumed differently, so results agree statistically.

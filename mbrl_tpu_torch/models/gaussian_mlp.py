@@ -207,8 +207,9 @@ class GaussianMLP:
         self, params: Params, input_affine: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     ) -> _Packed:
         """The elite view of ``params`` with its packed weight stack and, on
-        the card, the chain route's tiles (none for a stack that takes the
-        wide route). With ``input_affine = (mean, std)``, the
+        the card, the kernels' tiles of the route it takes (the chain's, or
+        the wide tensor-core route's for K1 and K2; K3's wide route reads the
+        stack). With ``input_affine = (mean, std)``, the
         caller's input transform ``(x - mean) / std`` is folded into the first
         layer, an exact algebraic rewrite, and the stack takes raw inputs. Kept
         for as long as ``params`` (and the transform) hold the same tensors,
@@ -238,8 +239,7 @@ class GaussianMLP:
             stack = self.pack({**view, "layers": [first] + list(view["layers"][1:])})
         else:
             stack = self.pack(view)
-        chain = kernels.takes_chain(stack.dims, stack.low_precision)
-        tiles = kernels.pack_chain(stack) if chain and stack.ws.device.type == "cuda" else None
+        tiles = kernels.pack_tiles(stack) if stack.ws.device.type == "cuda" else None
         entry = _Packed(key, tuple(leaves), view, stack, tiles)
         self._packed[folded] = entry
         self.packs += 1

@@ -31,9 +31,13 @@ shared-memory layout, bf16, or for an f32 stack two tf32 copies (hi, lo) for
 Each wrapper has two routes on the card, picked by :func:`takes_chain` from
 the stack's :class:`ChainLayout`: the tensor-core chain for chains of at most
 ``MAX_PRODUCTS`` products with layers at most ``TC_MAX_WIDTH`` wide, and the
-wide route (``csrc/wide_chain.cu``, :class:`WideLayout`) for any other width
-and depth, with the same grid and one launch per call either way. The wide
-route reads the stack's own weights, not the packed tiles.
+wide route for any other width and depth, with the same grid and one launch
+per call either way. On the wide route K1 and K2 run on the tensor cores too
+(``csrc/wide_tc.cu``), on weights packed by :func:`pack_wide`
+(:class:`WideTileLayout`: the chain's layout in passes of ``WIDE_PASS``
+columns) with the activations streamed from a per-block scratch; K3's wide
+route (``csrc/wide_chain.cu``, :class:`WideLayout`) reads the stack's own
+weights by f32 FMA.
 """
 from __future__ import annotations
 
@@ -78,6 +82,8 @@ MAX_TILE = 64
 TC_MAX_WIDTH = 256
 TC_MAX_STAGES = 4
 TC_SMEM_BYTES = 232_448
+# output columns of one pass of the wide tensor-core route (csrc/wide_tc.cuh)
+WIDE_PASS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +186,11 @@ class ChainLayout:
     def n_pad(self) -> Tuple[int, ...]:
         return self.k_pad[1:] + (_round_up(self.dims[-1], 8),)
 
+    def passes(self, i: int) -> Tuple[Tuple[int, int], ...]:
+        """(first column, width) of each pass of product i's output columns:
+        the chain takes them in one."""
+        return ((0, self.n_pad[i]),)
+
     def product_offset(self, i: int) -> int:
         """Element offset of product i in a member's tiles."""
         return sum(k * n * self.copies for k, n in zip(self.k_pad[:i], self.n_pad[:i]))
@@ -210,6 +221,55 @@ class ChainTiles:
     layout: ChainLayout
 
 
+@dataclasses.dataclass(frozen=True)
+class WideTileLayout(ChainLayout):
+    """Where the wide tensor-core route (K1, K2) finds a member's weights and
+    keeps a tile's activations (mirrors ``make_wide_desc`` in
+    ``csrc/wide_tc.cuh``).
+
+    Products are padded as in :class:`ChainLayout` and take as many elements,
+    but each is cut first into passes of up to ``WIDE_PASS`` output columns
+    (:meth:`passes`), then each pass into K chunks of ``chunk`` rows; a chunk
+    holds its copies, each K-major in ``wgmma``'s layout at the pass's width
+    (element (k, n) at ``((k // t * w/8 + n // 8) * 8 + n % 8) * t + k % t``
+    for a pass w wide).
+
+    A block's scratch (:meth:`block_bytes`) holds two activation buffers, the
+    head's (64, ``n_pad[-1]``) f32 and, for K1, the obs carry and running
+    return. An activation buffer holds a product's (64, k_pad) input in K
+    chunks of ``chunk`` columns, each chunk its copies in the A layout of
+    ``csrc/tc_chain.cuh:a_index``: what one bulk copy lands in a ring buffer.
+    """
+
+    def passes(self, i: int) -> Tuple[Tuple[int, int], ...]:
+        """(first column, width) of each pass of product i."""
+        n = self.n_pad[i]
+        return tuple((p, min(WIDE_PASS, n - p)) for p in range(0, n, WIDE_PASS))
+
+    @functools.cached_property
+    def a_buf_bytes(self) -> int:
+        return MAX_TILE * max(self.k_pad) * self.esize * self.copies
+
+    def block_bytes(self, carry_dim: int = 0) -> int:
+        """Scratch of one block; ``carry_dim`` is K1's obs width (its carry
+        and running return take ``MAX_TILE * (carry_dim + 1)`` f32 more)."""
+        carry = MAX_TILE * (carry_dim + 1) if carry_dim else 0
+        return _round_up(2 * self.a_buf_bytes + 4 * MAX_TILE * self.n_pad[-1] + 4 * carry, 128)
+
+    @functools.cached_property
+    def stage_bytes(self) -> int:
+        """One ring buffer: an A chunk slot (64 x chunk, every copy), then
+        a weight chunk of the widest pass."""
+        slot = MAX_TILE * self.chunk * self.esize * self.copies
+        return slot + self.chunk * min(WIDE_PASS, max(self.n_pad)) * self.esize * self.copies
+
+    @functools.lru_cache(maxsize=None)
+    def stages(self, extra_bytes: int = 0) -> int:
+        """Ring buffers that fit in shared memory beside the barriers (the
+        obs carry lives in the scratch, so ``extra_bytes`` does not count)."""
+        return min(TC_MAX_STAGES, (TC_SMEM_BYTES - 128) // self.stage_bytes)
+
+
 def rna_tf32(x: torch.Tensor) -> torch.Tensor:
     """f32 rounded to tf32 (10 mantissa bits), to nearest with ties away from
     zero as ``cvt.rna.tf32.f32`` does, on the bits; the 13 low bits come out 0."""
@@ -223,10 +283,7 @@ def _core_blocks(w: torch.Tensor, t: int) -> torch.Tensor:
     return w.reshape(e, kc // t, t, n // 8, 8).permute(0, 1, 3, 4, 2).reshape(e, -1)
 
 
-def pack_chain(stack: MLPStack) -> ChainTiles:
-    """Pack ``stack`` into the kernels' layout (:class:`ChainLayout`); once per
-    rollout, or once per model state (``GaussianMLP.packed``)."""
-    lay = ChainLayout(stack.dims, stack.low_precision)
+def _pack(stack: MLPStack, lay: ChainLayout) -> ChainTiles:
     parts = []
     for i in range(stack.num_products):
         w, _ = stack.product(i)
@@ -237,27 +294,50 @@ def pack_chain(stack: MLPStack) -> ChainTiles:
         else:
             hi = rna_tf32(w)
             copies = [hi, rna_tf32(w - hi)]
-        for k0 in range(0, kp, lay.chunk):
-            parts += [_core_blocks(c[:, k0 : k0 + lay.chunk], lay.t) for c in copies]
+        for p0, width in lay.passes(i):
+            for k0 in range(0, kp, lay.chunk):
+                parts += [_core_blocks(c[:, k0 : k0 + lay.chunk, p0 : p0 + width], lay.t)
+                          for c in copies]
     return ChainTiles(torch.cat(parts, dim=1).contiguous(), lay)
 
 
+def pack_chain(stack: MLPStack) -> ChainTiles:
+    """Pack ``stack`` into the kernels' layout (:class:`ChainLayout`); once per
+    rollout, or once per model state (``GaussianMLP.packed``)."""
+    return _pack(stack, ChainLayout(stack.dims, stack.low_precision))
+
+
+def pack_wide(stack: MLPStack) -> ChainTiles:
+    """Pack ``stack`` for the wide tensor-core route (:class:`WideTileLayout`);
+    once per model state (``GaussianMLP.packed``), or per call when not given."""
+    return _pack(stack, WideTileLayout(stack.dims, stack.low_precision))
+
+
+def pack_tiles(stack: MLPStack, extra_bytes: int = 0) -> ChainTiles:
+    """The packed tiles of the route :func:`takes_chain` picks for ``stack``."""
+    if takes_chain(stack.dims, stack.low_precision, extra_bytes):
+        return pack_chain(stack)
+    return pack_wide(stack)
+
+
 def unpack_chain(tiles: ChainTiles, i: int) -> Tuple[torch.Tensor, ...]:
-    """Product i's padded (E, k_pad, n_pad) weights back out of the tiles: one
+    """Product i's padded (E, k_pad, n_pad) weights back out of the tiles (of
+    either layout), walking passes and chunks in the kernels' order: one
     tensor for bf16, (hi, lo) for f32."""
     lay = tiles.layout
-    e = tiles.w.shape[0]
-    kp, np_, t = lay.k_pad[i], lay.n_pad[i], lay.t
+    e, t = tiles.w.shape[0], lay.t
+    kp, np_ = lay.k_pad[i], lay.n_pad[i]
+    out = [tiles.w.new_zeros((e, kp, np_)) for _ in range(lay.copies)]
     off = lay.product_offset(i)
-    blocks = [[] for _ in range(lay.copies)]
-    for k0 in range(0, kp, lay.chunk):
-        kc = min(lay.chunk, kp - k0)
-        for c in range(lay.copies):
-            n = kc * np_
-            blk = tiles.w[:, off : off + n].reshape(e, kc // t, np_ // 8, 8, t)
-            blocks[c].append(blk.permute(0, 1, 4, 2, 3).reshape(e, kc, np_))
-            off += n
-    return tuple(torch.cat(b, dim=1) for b in blocks)
+    for p0, width in lay.passes(i):
+        for k0 in range(0, kp, lay.chunk):
+            kc = min(lay.chunk, kp - k0)
+            for c in range(lay.copies):
+                n = kc * width
+                blk = tiles.w[:, off : off + n].reshape(e, kc // t, width // 8, 8, t)
+                out[c][:, k0 : k0 + kc, p0 : p0 + width] = blk.permute(0, 1, 4, 2, 3).reshape(e, kc, width)
+                off += n
+    return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -498,11 +578,13 @@ def _check_stack(stack: MLPStack, device: torch.device) -> None:
 def _check_tiles(
     stack: MLPStack, tiles: Optional[ChainTiles], device: torch.device, extra_bytes: int = 0
 ) -> ChainTiles:
-    """The chain route's checks of the packed tiles of a checked stack
-    (packed here if None)."""
+    """The checks of the packed tiles of a checked stack, for the route
+    :func:`takes_chain` picks (packed here if None)."""
     if tiles is None:
-        tiles = pack_chain(stack)
+        tiles = pack_tiles(stack, extra_bytes)
     lay = tiles.layout
+    if isinstance(lay, WideTileLayout) == takes_chain(stack.dims, stack.low_precision, extra_bytes):
+        raise ValueError(f"tiles {type(lay).__name__} were packed for the other route of {stack.dims}")
     if (lay.dims != stack.dims or lay.low_precision != stack.low_precision
             or tiles.w.shape != (stack.num_members, lay.member_elems)):
         raise ValueError(f"tiles {lay} {tuple(tiles.w.shape)} do not match the stack {stack.dims}")
@@ -556,13 +638,20 @@ def _device_dims(dims: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(dims, dtype=torch.int32, device=device)
 
 
-def _wide_args(stack: MLPStack, device: torch.device, blocks: int, carry_dim: int = 0):
-    """The wide entries' host dims and device dims, and a fresh scratch for
+def _wide_args(stack: MLPStack, device: torch.device, blocks: int):
+    """K3's wide entry's host dims and device dims, and a fresh scratch for
     ``blocks`` blocks (the caller keeps it alive until the launch is
     enqueued)."""
-    scratch = torch.empty(blocks * WideLayout(stack.dims).block_floats(carry_dim),
+    scratch = torch.empty(blocks * WideLayout(stack.dims).block_floats(),
                           dtype=torch.float32, device=device)
     return _dims_arg(stack), _device_dims(stack.dims, device).data_ptr(), scratch
+
+
+def _wide_scratch(layout: WideTileLayout, device: torch.device, blocks: int,
+                  carry_dim: int = 0) -> torch.Tensor:
+    """A fresh scratch of ``blocks`` blocks for the wide tensor-core route, in
+    bytes (the caller keeps it alive until the launch is enqueued)."""
+    return torch.empty(blocks * layout.block_bytes(carry_dim), dtype=torch.uint8, device=device)
 
 
 def fused_ensemble_mlp(
@@ -571,7 +660,7 @@ def fused_ensemble_mlp(
     """K3: per-member-sharded ensemble forward, raw head. x (E, S, in) →
     (E, S, head_out), any head width (``2 * out`` of a Gaussian model, ``out``
     of a deterministic one). ``tiles`` is ``pack_chain(stack)``, packed here
-    when not given (pack once per rollout or model state); the wide route
+    when not given (pack once per rollout or model state); K3's wide route
     reads the stack itself and ignores it."""
     if not _dispatch(x):
         return fused_ensemble_mlp_plain(x, stack)
@@ -619,8 +708,8 @@ def fused_ensemble_mlp_gaussian(
     """K2: one rollout step, (E, S, in) → (E, S, out_size): a draw from the
     bounded Gaussian head (two seed words from ``generator`` key the kernel's
     Philox), or the head's mean when ``sample=False``. ``tiles`` is
-    ``pack_chain(stack)``, packed here when not given (pack once per rollout);
-    the wide route ignores it."""
+    ``pack_tiles(stack)`` (the chain's or the wide route's), packed here when
+    not given (pack once per rollout or model state)."""
     if not _dispatch(x):
         return fused_ensemble_mlp_gaussian_plain(
             generator, x, stack, max_logvar, min_logvar, out_size, sample
@@ -635,27 +724,22 @@ def fused_ensemble_mlp_gaussian(
         raise ValueError(f"x {tuple(x.shape)} / out_size {out_size} do not match stack dims {stack.dims}")
     if max_logvar.numel() != out_size or min_logvar.numel() != out_size:
         raise ValueError("logvar bounds must have out_size entries")
-    chain = takes_chain(stack.dims, stack.low_precision)
-    if chain:
-        tiles = _check_tiles(stack, tiles, x.device)
+    tiles = _check_tiles(stack, tiles, x.device)
     s0, s1 = seed_words(generator, 2)
     out = torch.empty((e, rows, out_size), dtype=torch.float32, device=x.device)
     lib = load_library()
     act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
-    if chain:
-        code = lib.mbrl_ensemble_mlp_gaussian(
-            s0, s1, x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
-            max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(),
-            _dims_arg(stack), stack.num_products, e, rows, out_size, int(sample), act, low,
-            tiles.layout.member_elems, _stream(x.device),
-        )
+    head = (s0, s1, x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
+            max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(), _dims_arg(stack))
+    tail = (stack.num_products, e, rows, out_size, int(sample), act, low,
+            tiles.layout.member_elems)
+    if not isinstance(tiles.layout, WideTileLayout):
+        code = lib.mbrl_ensemble_mlp_gaussian(*head, *tail, _stream(x.device))
     else:
-        dims, dims_dev, scratch = _wide_args(stack, x.device, -(-rows // MAX_TILE) * e)
+        scratch = _wide_scratch(tiles.layout, x.device, -(-rows // MAX_TILE) * e)
         code = lib.mbrl_ensemble_mlp_gaussian_wide(
-            s0, s1, x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(),
-            max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(), dims, dims_dev,
-            stack.num_products, e, rows, out_size, int(sample), act, low, stack.ws.shape[1],
-            scratch.data_ptr(), scratch.numel(), _stream(x.device),
+            *head, _device_dims(stack.dims, x.device).data_ptr(), *tail, scratch.data_ptr(),
+            scratch.numel(), _stream(x.device),
         )
     _raise_on_error(code, "fused_ensemble_mlp_gaussian")
     fused_ensemble_mlp_gaussian.launches += 1
@@ -681,8 +765,9 @@ def fused_rollout_returns(
     rot_tiles (H,) int: cumulative tile-granular rotations; obs0_rows (B, D);
     acts_rows (B, H, A); delta_mask (1, D), 1 where the target is a delta.
     Requires D == out_size - 1, tile <= 64 dividing B into a multiple of E tiles.
-    ``tiles`` is ``pack_chain(stack)``, packed here when not given; the wide
-    route ignores it.
+    ``tiles`` is ``pack_tiles(stack, 4 * MAX_TILE * (D + 1))`` (the chain's
+    or the wide route's; K1's obs carry counts for the chain), packed here
+    when not given.
     """
     if not _dispatch(obs0_rows):
         return fused_rollout_returns_plain(
@@ -711,30 +796,23 @@ def fused_rollout_returns(
                 delta_mask=delta_mask, max_logvar=max_logvar, min_logvar=min_logvar)
     dev = obs0_rows.device
     _check_stack(stack, dev)
-    carry_bytes = 4 * MAX_TILE * (obs_dim + 1)
-    chain = takes_chain(stack.dims, stack.low_precision, carry_bytes)
-    if chain:
-        tiles = _check_tiles(stack, tiles, dev, extra_bytes=carry_bytes)
+    tiles = _check_tiles(stack, tiles, dev, extra_bytes=4 * MAX_TILE * (obs_dim + 1))
     s0, s1 = seed_words(generator, 2)
     out = torch.empty((batch, 1), dtype=torch.float32, device=dev)
     lib = load_library()
     act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
-    common = (rot_tiles.data_ptr(), obs0_rows.data_ptr(), acts_rows.data_ptr(),
-              delta_mask.data_ptr())
-    bounds = (max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr())
-    if chain:
-        code = lib.mbrl_rollout_returns(
-            s0, s1, *common, tiles.w.data_ptr(), stack.bs.data_ptr(), *bounds,
-            _dims_arg(stack), stack.num_products, e, batch, obs_dim, act_dim, horizon,
-            out_size, tile, int(sample), act, low, tiles.layout.member_elems, _stream(dev),
-        )
+    head = (s0, s1, rot_tiles.data_ptr(), obs0_rows.data_ptr(), acts_rows.data_ptr(),
+            delta_mask.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(),
+            max_logvar.data_ptr(), min_logvar.data_ptr(), out.data_ptr(), _dims_arg(stack))
+    tail = (stack.num_products, e, batch, obs_dim, act_dim, horizon, out_size, tile,
+            int(sample), act, low, tiles.layout.member_elems)
+    if not isinstance(tiles.layout, WideTileLayout):
+        code = lib.mbrl_rollout_returns(*head, *tail, _stream(dev))
     else:
-        dims, dims_dev, scratch = _wide_args(stack, dev, batch // tile, carry_dim=obs_dim)
+        scratch = _wide_scratch(tiles.layout, dev, batch // tile, carry_dim=obs_dim)
         code = lib.mbrl_rollout_returns_wide(
-            s0, s1, *common, stack.ws.data_ptr(), stack.bs.data_ptr(), *bounds, dims, dims_dev,
-            stack.num_products, e, batch, obs_dim, act_dim, horizon, out_size, tile,
-            int(sample), act, low, stack.ws.shape[1], scratch.data_ptr(), scratch.numel(),
-            _stream(dev),
+            *head, _device_dims(stack.dims, dev).data_ptr(), *tail, scratch.data_ptr(),
+            scratch.numel(), _stream(dev),
         )
     _raise_on_error(code, "fused_rollout_returns")
     fused_rollout_returns.launches += 1

@@ -1,27 +1,37 @@
 """Environment construction from a config (counterpart of the custom-environment
-part of ``mbrl_tpu/util/env.py:96-133``): ``cfg.overrides.env`` names the
+part of ``mbrl_tpu/util/env.py:96-159``): ``cfg.overrides.env`` names the
 environment, ``term_fn`` and ``reward_fn`` name the model-side functions, and
 ``trial_length`` caps every episode (:class:`~mbrl_tpu_torch.envs.time_limit.TimeLimit`,
 as ``gymnasium.wrappers.TimeLimit`` does there).
 
-The port builds only the environments it has; a MuJoCo environment, a
-``gym___…``, ``pybulletgym___…`` or ``dmcontrol___…`` name raises ``NotImplementedError`` naming
-the package it needs. The freeze/state handlers come with those environments.
+Names resolve in the reference's order: a custom name, then
+``overrides.env_cfg``, then the ``gym___``, ``pybulletgym___`` and
+``dmcontrol___`` prefixes, then an environment registered in
+:mod:`mbrl_tpu_torch.envs`. The port builds only the environments it has; a
+MuJoCo environment or a prefixed name raises ``NotImplementedError`` naming the
+package it needs. The freeze/state handlers come with those environments.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+from mbrl_tpu_torch import envs as _envs
 from mbrl_tpu_torch.envs import reward_fns as _reward_fns
 from mbrl_tpu_torch.envs import termination_fns as _term_fns
 from mbrl_tpu_torch.envs.time_limit import TimeLimit
 
-# the JAX package's custom environments (mbrl_tpu/util/env.py:124-133) that
-# run on MuJoCo: the port has their model-side functions, not the simulator
-_MUJOCO_ENVS = (
-    "pets_halfcheetah", "pets_cartpole", "cartpole_pets_version", "ant_truncated_obs",
-    "humanoid_truncated_obs", "pets_pusher", "pets_reacher",
-)
+# the JAX package's custom environments (mbrl_tpu/util/env.py:124-133), by
+# their class names in the envs package; all but the first run on MuJoCo
+_CUSTOM_ENVS = {
+    "cartpole_continuous": "CartPoleEnv",
+    "pets_halfcheetah": "PetsHalfCheetahEnv",
+    "pets_cartpole": "PetsCartPoleEnv",
+    "cartpole_pets_version": "PetsCartPoleEnv",
+    "ant_truncated_obs": "AntTruncatedObsEnv",
+    "humanoid_truncated_obs": "HumanoidTruncatedObsEnv",
+    "pets_pusher": "PetsPusherEnv",
+    "pets_reacher": "PetsReacher3DEnv",
+}
 
 
 def _lookup_fn(module, name: Optional[str]) -> Optional[Callable]:
@@ -31,19 +41,12 @@ def _lookup_fn(module, name: Optional[str]) -> Optional[Callable]:
 
 
 def make_env_from_name(cfg, env_name: str):
-    if env_name == "cartpole_continuous":
-        from mbrl_tpu_torch.envs.cartpole_continuous import CartPoleEnv
-
-        return CartPoleEnv()
+    if env_name in _CUSTOM_ENVS:  # a MuJoCo one raises from the envs package
+        return getattr(_envs, _CUSTOM_ENVS[env_name])()
     if "env_cfg" in cfg.overrides:
         from mbrl_tpu_torch.config import instantiate
 
         return instantiate(cfg.overrides.env_cfg)
-    if env_name in _MUJOCO_ENVS:
-        raise NotImplementedError(
-            f"environment {env_name!r} needs `mujoco` (and `gymnasium`), which the port does "
-            "not use yet; its model-side functions are in mbrl_tpu_torch.envs"
-        )
     if env_name.startswith("gym___"):
         raise NotImplementedError(f"environment {env_name!r} needs `gymnasium`, which the port "
                                   "does not use yet")
@@ -53,6 +56,11 @@ def make_env_from_name(cfg, env_name: str):
     if env_name.startswith("dmcontrol___"):
         raise NotImplementedError(f"environment {env_name!r} needs `dm_control`, which the port "
                                   "does not use yet")
+    # an environment registered in the envs package (the reference's hasattr
+    # fallback); by membership, since a MuJoCo name raises NotImplementedError
+    # there, which hasattr would pass on
+    if env_name in _envs.ENVIRONMENTS or env_name in _envs.MUJOCO_ENVS:
+        return getattr(_envs, env_name)()
     raise ValueError(f"Unknown environment {env_name!r}")
 
 

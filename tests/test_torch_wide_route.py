@@ -1,19 +1,20 @@
-"""The kernels' wide route (``csrc/wide_chain.cu``) and the route selection,
-on the CPU.
+"""The kernels' wide route and the route selection, on the CPU.
 
 The tensor-core chain takes layers up to 256 wide and 9 products; every other
-stack takes the wide route, which reads the ``MLPStack``'s own row-major
-weights and keeps a tile's activations in a per-block scratch. These tests
-check, without a GPU:
+stack takes the wide route, which keeps a tile's activations in a per-block
+scratch. K3's wide route (``csrc/wide_chain.cu``) reads the ``MLPStack``'s own
+row-major weights by f32 FMA; K1's and K2's (``csrc/wide_tc.cu``) run on the
+tensor cores on ``pack_wide``'s tiles (``tests/test_torch_wide_tc.py``). These
+tests check, without a GPU:
 
 - the route: ``takes_chain`` is true exactly where the chain fits (width and
   depth; K1's obs carry beside the weight ring always fits), and every chain of
   positive widths is supported (264, 300, 512, 1024 wide, 12 products, where
   the wrappers raised before);
-- the wide layout: each product's weights and bias sit at ``WideLayout``'s
+- K3's wide layout: each product's weights and bias sit at ``WideLayout``'s
   offsets of a member's row (the offsets the kernel's running sums reach), and
   the scratch a block needs;
-- a plain-torch emulation of the kernel's passes (128 output columns) over
+- a plain-torch emulation of K3's wide passes (128 output columns) over
   K chunks (32 rows), with its masks and its bf16 rounding points, against
   ``fused_ensemble_mlp_plain`` and the JAX f32 kernel in interpret mode;
 - the wrappers' CUDA branch against a stand-in library: each call reaches the
@@ -223,11 +224,11 @@ def test_wrappers_reach_the_entry_of_their_route(fake_card, name):
     assert tk.launch_counts() == {"fused_rollout_returns": 1, "fused_ensemble_mlp_gaussian": 1,
                                   "fused_ensemble_mlp": 1}
     if wide:  # each scratch holds its grid's blocks: K3 persistent, K2 (tiles, E), K1 tiles
-        lay = tk.WideLayout(dims)
-        grids = [tk.persistent_blocks(100, 5, 132), 2 * 5]
-        for (_, args), blocks in zip(fake_card.calls[:2], grids):
-            assert args[-2] == blocks * lay.block_floats()
-        assert fake_card.calls[2][1][-2] == (batch // 64) * tk.WideLayout(stack1.dims).block_floats(17)
+        (_, k3), (_, k2), (_, k1) = fake_card.calls
+        assert k3[-2] == tk.persistent_blocks(100, 5, 132) * tk.WideLayout(dims).block_floats()
+        # K2 and K1 on the tensor cores: scratch in bytes of their tile layout
+        assert k2[-2] == 2 * 5 * tk.WideTileLayout(dims, False).block_bytes()
+        assert k1[-2] == (batch // 64) * tk.WideTileLayout(stack1.dims, False).block_bytes(17)
         # the device dims hold the stack's dims
         assert tk._device_dims(dims, torch.device("cpu")).tolist() == list(dims)
 
