@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --published-e   # config E alone at its published 5,000 steps
+    python3 chip_smoke.py --published-m   # config M alone at its published 5,000 steps
 
 Builds the CUDA kernels from ``mbrl_tpu_torch/csrc/`` (one nvcc per source, all
 at once): K1, K2 and K3 on the tensor-core chain (``tc_chain.cu``,
-``ensemble_mlp.cu``) and on the wide route (K1 and K2 on the tensor cores in
-``wide_tc.cu``, K3 in ``wide_chain.cu``). Holds each
-against its plain PyTorch version at the main paths' shapes (f32 and bf16; K3
-at 8,000 rows with a Gaussian and with a deterministic head, at 100,000 rows
-and at config M's 80,000; K2, mean path and samples, at the shapes of configs
-B and E, of MPPI and of each of iCEM's populations; every activation at 200
-and 300 columns; widths 256 to 1024 and a 12-product chain; the wide route
-timed at 512 columns) and times both, then drives the port's entry points at
-full width (7-member GaussianMLP ensemble, 5 elites, 4x200 silu; CEM pop 400 x
-20 particles x horizon 30, 5 iterations) with random weights from a seed:
+``ensemble_mlp.cu``) and on the wide route, on the tensor cores too (K1 and K2
+in ``wide_tc.cu``, K3's ``ensemble_mlp_wide_tc_kernel`` in
+``ensemble_mlp_wide.cu``). Holds each against its
+plain PyTorch version at the main paths' shapes (f32 and bf16; K3 at 8,000
+rows with a Gaussian and with a deterministic head, at 100,000 rows and at
+config M's 80,000; K2, mean path and samples, at the shapes of configs B and
+E, of MPPI and of each of iCEM's populations; every activation at 200 and 300
+columns; widths 256 to 1024 and a 12-product chain; the wide route timed at
+512 columns, K3 there at 8,000 and 100,000 rows) and times both, then drives
+the port's entry points at full width (7-member GaussianMLP ensemble, 5
+elites, 4x200 silu; CEM pop 400 x 20 particles x horizon 30, 5 iterations)
+with random weights from a seed:
 
   A  the bench shape (learned rewards, rotate, bf16): whole-horizon kernel K1
   B  the PETS-HalfCheetah config (preprocess, analytic reward, sort, f32): K2
@@ -49,7 +52,8 @@ full width (7-member GaussianMLP ensemble, 5 elites, 4x200 silu; CEM pop 400 x
      The cuts: ``num_steps`` 5,000 -> ``M_NUM_STEPS`` (two epochs: 2
      retrainings, 2 evaluations, ~4,000 SAC updates), and
      ``algorithm.dataset_size`` set to 5,000 (the published ``num_steps``) so
-     that the replay buffer keeps its published size. K3 at 80,000 rows, in 5
+     that the replay buffer keeps its published size. K3 at 80,000 rows, in 5.
+     ``--published-m`` runs the published 5,000 steps instead (25 epochs)
   M-HC  MBPO-HalfCheetah's shape without the environment: a seeded model (in 23,
      out 18, 4x200) and SAC (512 wide, batch 256): imagined rollouts of
      100,000 rows (length 1, then 5), three bundles of 10 SAC updates, and
@@ -206,8 +210,8 @@ def elite_stack(in_size: int, out_size: int, dtype, g: torch.Generator,
 
 def check_k3(K, x, stack, dt_name: str, what: str):
     """K3 against its plain version on ``x``; its times and bound."""
-    tiles = K.pack_chain(stack) if K.takes_chain(stack.dims, stack.low_precision) else None
-    got = K.fused_ensemble_mlp(x, stack, tiles=tiles)  # packed once, as a rollout does
+    tiles = K.pack_tiles(stack)  # the layout of its route, packed once as a rollout does
+    got = K.fused_ensemble_mlp(x, stack, tiles=tiles)
     ref = K.fused_ensemble_mlp_plain(x, stack)
     tol = TOL[("K3", dt_name)]
     err, ok = max_err(got, ref, tol)
@@ -528,8 +532,8 @@ def width_sweep(device: str = "cuda"):
 
 def wide_kernel_checks():
     """K3, K2 and K1 on the wide route at ``WIDE_HID`` columns: the shapes of
-    K3 ``C8k``, K2 ``B`` and K1 ``A`` with a 4 x ``WIDE_HID`` model (the
-    port's init, 5 elites), f32 and bf16, checked and timed as
+    K3 ``C8k`` and ``C100k``, K2 ``B`` and K1 ``A`` with a 4 x ``WIDE_HID``
+    model (the port's init, 5 elites), f32 and bf16, checked and timed as
     ``kernel_checks`` does."""
     from mbrl_tpu_torch.ops import kernels as K
 
@@ -544,6 +548,11 @@ def wide_kernel_checks():
         results[("K2@W512", dt_name)] = check_k2(K, g, x, stack, max_lv, min_lv, dt_name,
                                                  f"{WIDE_HID} wide")
         stack, max_lv, min_lv = elite_stack(OBS_A + ACT, OBS_A + 1, dtype, g, hid=WIDE_HID)
+        # K3 at the MBPO rollout's shape: E=5 x S=20,000, in 23, head 36
+        x = torch.randn((ELITES, MBPO_ROWS // ELITES, OBS_A + ACT), generator=g).to(dev)
+        results[("K3@W512C100k", dt_name)] = check_k3(K, x, stack, dt_name,
+                                                      f"{WIDE_HID} wide, C100k")
+        del x
         results[("K1@W512", dt_name)] = check_k1(K, g, stack, max_lv, min_lv, dt_name,
                                                  f"{WIDE_HID} wide")
         print(f"wide route {WIDE_HID} {dt_name}: " + json.dumps(
@@ -651,9 +660,10 @@ def plan_config(name: str, device: str = "cuda", hid: int = HID, acts: int = 3):
     return times
 
 
+# the CUDA kernels of K1, K2 and K3: on the chain, then on the wide route
 PORT_KERNELS = ("rollout_returns_tc_kernel", "gaussian_tc_kernel", "ensemble_mlp_tc_kernel",
                 "rollout_returns_wide_tc_kernel", "gaussian_wide_tc_kernel",
-                "ensemble_mlp_wide_kernel")
+                "ensemble_mlp_wide_tc_kernel")
 
 
 def device_busy(name: str, acts: int = 2, hid: int = HID):
@@ -1180,8 +1190,9 @@ def act_batch_config_b(device: str = "cuda", workers: int = 4):
 def wide_paths(device: str = "cuda"):
     """A ``WIDE_HID``-wide model through the entry points: two ``act``s of
     config A (K1) and of config B (K2), the first of each on a fresh agent
-    (it packs the model), and ``GaussianMLP._forward_sharded`` (K3) on the
-    card against the same model on the CPU."""
+    (it packs the model), and ``GaussianMLP._forward_sharded`` (one K3
+    launch, on the model's wide tiles) on the card against the same model on
+    the CPU."""
     from mbrl_tpu_torch.models import GaussianMLP
     from mbrl_tpu_torch.ops import kernels as K
 
@@ -1196,8 +1207,16 @@ def wide_paths(device: str = "cuda"):
                             propagation_method="random_model", device=dev)
         params = model.set_elite(model.init(torch.Generator().manual_seed(SEED + 14)),
                                  list(range(ELITES)))
-        check(not K.takes_chain(model.packed(params).stack.dims, False), "a 512-wide model took the chain")
+        packed = model.packed(params)
+        check(not K.takes_chain(packed.stack.dims, False), "a 512-wide model took the chain")
+        check(dev == "cpu" or isinstance(packed.tiles.layout, K.WideTileLayout),
+              "a 512-wide model was not packed for the wide route")
+        before = K.fused_ensemble_mlp.launches
         mean, logvar = model._forward_sharded(params, x.to(dev), perm.to(dev))
+        want = 1 if dev == "cuda" else 0
+        check(K.fused_ensemble_mlp.launches - before == want,
+              f"_forward_sharded at {WIDE_HID} columns on {dev}: "
+              f"{K.fused_ensemble_mlp.launches - before} K3 launches, not {want}")
         vals[dev] = (mean.float().cpu(), logvar.float().cpu())
     tol = TOL[("K3", "f32")]
     err = max(max_err(a, b, tol)[0] for a, b in zip(vals[device], vals["cpu"]))
@@ -1272,8 +1291,9 @@ def propagation_paths(device: str = "cuda"):
 # --------------------------------------------------------------------------- #
 # Config M: a whole MBPO run through algorithms.mbpo.train
 # --------------------------------------------------------------------------- #
-# the published MBPO cartpole run has 5,000 steps; the cut run takes two epochs
-M_NUM_STEPS = 400
+# the published MBPO cartpole run has 5,000 steps (--published-m runs them);
+# the cut run takes two epochs
+M_PUBLISHED_STEPS, M_NUM_STEPS = 5000, 400
 # examples/conf/main.yaml with algorithm=mbpo, overrides=mbpo_cartpole,
 # dynamics_model=gaussian_mlp_ensemble, interpolations resolved (the default
 # action_optimizer group stays, unused and unresolved); tests/test_torch_config.py
@@ -1336,8 +1356,9 @@ class _Timed:
 
 def mbpo_config_m(device: str = "cuda", config=None):
     """``mbpo.train`` on the port's cartpole (``util.env.make_env``, capped at
-    200 steps) with ``CONFIG_M``. Returns the run's numbers and its work
-    directory (the caller removes it)."""
+    200 steps) with ``CONFIG_M``, printing one line at each epoch's
+    evaluation. Returns the run's numbers and its work directory (the caller
+    removes it)."""
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_mbpo_")
     try:
         return _mbpo_config_m(device, config, work_dir), work_dir
@@ -1379,17 +1400,32 @@ def _mbpo_config_m(device, config, work_dir):
         stored.append(int(out.num_stored))
         return out
 
+    evaluate = mbpo.evaluate
+    epochs = []
+
+    def evaluated(*a, **kw):  # one line per epoch, so a cut run shows how far it got
+        reward = evaluate(*a, **kw)
+        epochs.append({
+            "step": len(env.actions) - explore, "eval_reward": float(reward),
+            "retrain_s": retrains.calls[-1][0] / 1e3 if retrains.calls else None,
+            "step_ms_median": float(np.median(env.gap_ms[-cfg.overrides.epoch_length:])),
+            "elapsed_s": time.perf_counter() - t0})
+        # the run's own stdout is captured below
+        print("config M epoch: " + json.dumps(epochs[-1]), file=sys.__stdout__, flush=True)
+        return reward
+
     stored = []
     # the methods patched on their classes get no `self` through a plain
     # callable: bind it
     retrain = lambda self, *a, **kw: retrains(self, *a, **kw)  # noqa: E731
     bundle = lambda self, *a, **kw: bundles(self, *a, **kw)  # noqa: E731
+    t0 = time.perf_counter()
     with mock.patch.object(mbpo, "imagined_rollout", rollout), \
             mock.patch.object(ModelTrainer, "train_device", retrain), \
             mock.patch.object(SAC, "update_from_buffer", bundle), \
             mock.patch.object(mbpo, "create_one_dim_tr_model", build_model), \
+            mock.patch.object(mbpo, "evaluate", evaluated), \
             contextlib.redirect_stdout(io.StringIO()):
-        t0 = time.perf_counter()
         best = mbpo.train(env, test_env, term_fn, cfg, silent=False, work_dir=work_dir,
                           device=device)
         total_s = time.perf_counter() - t0
@@ -1423,7 +1459,7 @@ def _mbpo_config_m(device, config, work_dir):
     check(state["params"]["elite"].shape == (ELITES,) and state["normalizer"].mean.dtype == torch.float64,
           "model.pkl: elites or normalizer lost")
     log = read_csv(work / "results.csv")
-    check(len(log["episode_reward"]) == steps // cfg.overrides.epoch_length
+    check(len(log["episode_reward"]) == steps // cfg.overrides.epoch_length == len(epochs)
           and bool(np.isfinite(log["episode_reward"]).all()), f"config M: evaluations {log}")
     train_log = read_csv(work / "model_train.csv")
     check(bool(np.isfinite(train_log["model_loss"]).all()), "config M: non-finite model loss")
@@ -1437,9 +1473,9 @@ def _mbpo_config_m(device, config, work_dir):
     _, b_args, b_kwargs, _ = bundles.calls[-1]
     busy = profile_busy(lambda: bundles.orig(*b_args, **b_kwargs)) if device == "cuda" else None
     return {
-        "num_steps": steps, "published_num_steps": 5000, "exploration_steps": explore,
+        "num_steps": steps, "published_num_steps": M_PUBLISHED_STEPS, "exploration_steps": explore,
         "retrainings": retrainings, "total_s": total_s, "best_eval_reward": float(best),
-        "eval_rewards": log["episode_reward"],
+        "eval_rewards": log["episode_reward"], "epochs": epochs,
         "sac_buffer_rows_after_first_rollout": stored[0],
         "sac_buffer_rows": stored,
         "env_step_ms_median": float(np.median(gaps[learning])),
@@ -1612,12 +1648,41 @@ def published_config_e() -> int:
     return 0
 
 
+def published_config_m() -> int:
+    """Config M alone at the published ``num_steps`` (5,000 steps after the
+    5,000 of exploration: 25 retrainings, 25 evaluations), everything else as
+    ``CONFIG_M``; one progress line per epoch, then the run's numbers and
+    launches, all checked as in the default run."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    config = copy.deepcopy(CONFIG_M)
+    config["overrides"]["num_steps"] = M_PUBLISHED_STEPS
+    print(f"config M at its published num_steps {M_PUBLISHED_STEPS}", flush=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    numbers, work_dir = mbpo_config_m(config=config)
+    counts = K.launch_counts()
+    shutil.rmtree(work_dir, ignore_errors=True)
+    want = {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0,
+            "fused_ensemble_mlp": numbers["retrainings"]}  # rollout length 1
+    check(counts == want, f"config M: expected launches {want}, got {counts}")
+    print("config M mbpo.train, published length: " + json.dumps(numbers) + f"  launches {counts}",
+          flush=True)
+    print(json.dumps({"M_published": {k: numbers[k] for k in (
+        "num_steps", "retrainings", "total_s", "best_eval_reward", "env_step_ms_median",
+        "sac_updates_per_s")}, "total_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--published-e", action="store_true",
                         help="after the build, run config E alone at its published num_steps "
+                             "(5,000) instead of the default phases")
+    parser.add_argument("--published-m", action="store_true",
+                        help="after the build, run config M alone at its published num_steps "
                              "(5,000) instead of the default phases")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1635,8 +1700,11 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({build.library_path().name}"
           f"{', already built' if cached else ''})", flush=True)
-    if args.published_e:
-        published_config_e()
+    if args.published_e or args.published_m:
+        if args.published_e:
+            published_config_e()
+        else:
+            published_config_m()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -1753,7 +1821,7 @@ def main(argv=None) -> int:
     chain = {"K1": "mbrl_tpu_torch/csrc/tc_chain.cu", "K2": "mbrl_tpu_torch/csrc/tc_chain.cu",
              "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
     wide_src = {"K1": "mbrl_tpu_torch/csrc/wide_tc.cu", "K2": "mbrl_tpu_torch/csrc/wide_tc.cu",
-                "K3": "mbrl_tpu_torch/csrc/wide_chain.cu"}
+                "K3": "mbrl_tpu_torch/csrc/ensemble_mlp_wide.cu"}
     rows = {  # row: (wrapper, the main path's dtype, its launches there, source)
         "K1": ("fused_rollout_returns", "bf16", counts_a["fused_rollout_returns"], chain["K1"]),
         "K2": (k2, "f32", counts_b[k2], chain["K2"]),
@@ -1773,12 +1841,15 @@ def main(argv=None) -> int:
     for k, (wrapper, dtype, launches, src) in rows.items():
         r = results[(k, dtype)]
         other = "f32" if dtype == "bf16" else "bf16"
+        base = k.split("@")[0]
+        route_kernels = PORT_KERNELS[3:] if src in wide_src.values() else PORT_KERNELS[:3]
         line.append({
             "name": f"{wrapper} ({k}, {dtype})",
+            "kernel": route_kernels[("K1", "K2", "K3").index(base)],
             "route": "cuda",
             "source": src,
-            "replaces": REPLACES[k.split("@")[0]],
-            "tpu_kernel": REPLACES[k.split("@")[0]],
+            "replaces": REPLACES[base],
+            "tpu_kernel": REPLACES[base],
             "dtype": dtype,
             "launches": launches,
             "max_abs_err": r["max_abs_err"],

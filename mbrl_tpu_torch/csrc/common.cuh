@@ -1,5 +1,5 @@
-// What the kernel sources share: the activations, bf16 rounding, the
-// launch dispatch on (activation, dtype) and the shared-memory attribute.
+// What the kernel sources share: the activations, the launch dispatch on
+// (activation, dtype) and the shared-memory attribute.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,10 +33,6 @@ __device__ __forceinline__ float activate(float x) {
   } else {
     return x >= 0.0f ? x : 0.01f * x;  // leaky_relu, slope 0.01
   }
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 #define DISPATCH_ACT(act, BF16, KERNEL, ...)                                  \

@@ -33,7 +33,7 @@
 //   width (8..128, a compile-time case: 64 accumulator registers; N = 208 is
 //   104 columns, 52 registers, per warpgroup), so the chain takes layers up to
 //   256 wide and at most MAX_PRODUCTS products; the wrappers send any other
-//   stack down the wide route (wide_chain.cu).
+//   stack down the wide route (wide_tc.cu, ensemble_mlp_wide.cu).
 // - Each chunk is one pipeline stage (fence, products, commit), straight-line
 //   and on warp-uniform control flow. ptxas serializes wgmma (a wait before
 //   every one) when a stage depends on a path it must treat as divergent, so

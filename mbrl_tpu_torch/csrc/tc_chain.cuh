@@ -21,23 +21,26 @@
 
 // Timeline instrumentation, compiled only with -DTC_TIMELINE (see
 // ops/chain_timeline.py): warpgroup w's thread 0 of block (0, 0) writes
-// %globaltimer at mark k to tc_timeline[k + 32 w]. Predicated, not branched,
+// %globaltimer at mark k to tc_timeline[k + 32 w] (w = 2: the producer
+// thread); TC_STAMP_IF only where `cond` holds too. Predicated, not branched,
 // so that it leaves the wgmma pipeline as it is. Each source has its own
 // marks and its own reader.
 #ifdef TC_TIMELINE
-static __device__ unsigned long long tc_timeline[64];
-#define TC_STAMP(k)                                                                   \
+static __device__ unsigned long long tc_timeline[96];
+#define TC_STAMP_IF(k, cond)                                                          \
   {                                                                                    \
     unsigned long long now;                                                            \
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));                            \
-    const int on = blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 127) == 0;     \
+    const int on = blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 127) == 0 &&   \
+                   (cond);                                                             \
     asm volatile("{\n.reg .pred p;\nsetp.ne.u32 p, %2, 0;\n@p st.global.u64 [%0], %1;\n}\n" \
                  ::"l"(tc_timeline + (k) + 32 * (threadIdx.x >> 7)), "l"(now), "r"(on)     \
                  : "memory");                                                          \
   }
 #else
-#define TC_STAMP(k)
+#define TC_STAMP_IF(k, cond)
 #endif
+#define TC_STAMP(k) TC_STAMP_IF(k, true)
 
 // per-dtype constants: element size, elements per 16 bytes, instruction depth,
 // K rows per chunk, and copies of each chunk (tf32 hi and lo)

@@ -9,7 +9,8 @@
 //                                        (whole H-step imagined rollout, one launch)
 //   K2 gaussian_wide_tc_kernel        <- fused_ensemble_mlp_gaussian / _gaussian_kernel
 //                                        (one step: MLP chain + bounded Gaussian sample)
-// Widest layer and deepest chain it takes: any.
+// Widest layer and deepest chain it takes: any. K3's wide route runs on the
+// same products (ensemble_mlp_wide.cu).
 //
 // What bounds them: operations, the products at the tensor peak (bf16 989
 // TFLOP/s; an f32 stack as 3xTF32, three tf32 products at 495). At 512 columns
@@ -58,6 +59,15 @@
 #include "gaussian_head.cuh"
 #include "wide_tc.cuh"
 
+#ifdef TC_TIMELINE
+// Marks of K2's block (0, 0) (and of K1's block 0, where K1 ran last): 0
+// start, 1 barriers set up, 2 input staged, produce_wide's and consume_wide's
+// per product (wide_tc.cuh), 31 sampled.
+extern "C" int mbrl_timeline_wide(unsigned long long* out) {
+  return cudaMemcpyFromSymbol(out, tc_timeline, sizeof(tc_timeline));
+}
+#endif
+
 // ---------------------------------------------------------------------------
 // K2: one rollout step. grid = (ceil(S / TC_ROWS), E), TC_THREADS threads.
 // x (E, S, in) f32 -> out (E, S, out_size) f32: a draw from the bounded
@@ -70,11 +80,13 @@ gaussian_wide_tc_kernel(uint32_t seed0, uint32_t seed1, const float* __restrict_
                         float* __restrict__ out, const int* __restrict__ dims, const WideDesc d,
                         unsigned char* scratch, int S, int out_size, int sample) {
   extern __shared__ __align__(128) unsigned char smem[];
+  TC_STAMP(0)
   const int e = blockIdx.y;
   const int row0 = blockIdx.x * TC_ROWS;
   const int rows = min(TC_ROWS, S - row0);
   unsigned char* act = scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * d.block_bytes;
   init_wide_barriers(d, smem);
+  TC_STAMP(1)
   if (uniform(threadIdx.x) >= TC_CONSUMERS) {  // the producer warp
     if (threadIdx.x == TC_CONSUMERS) {
       uint32_t it = 0, ready = 0;
@@ -88,6 +100,7 @@ gaussian_wide_tc_kernel(uint32_t seed0, uint32_t seed1, const float* __restrict_
   stage_wide_input<BF16>(smem, act, din, [&](int r, int c) {
     return r < rows ? __ldg(xe + (size_t)r * din + c) : 0.0f;
   });
+  TC_STAMP(2)
   float* head = reinterpret_cast<float*>(act + d.head_off);
   uint32_t it = 0;
   consume_wide<ACT, BF16>(d, dims, smem, act, head, bs + (size_t)e * d.b_member, it);
@@ -100,6 +113,7 @@ gaussian_wide_tc_kernel(uint32_t seed0, uint32_t seed1, const float* __restrict_
     o[idx] = head_draw(head[r * d.head_ld + c], head[r * d.head_ld + out_size + c],
                        __ldg(max_lv + c), __ldg(min_lv + c), sample, ctr, key);
   }
+  TC_STAMP(31)
 }
 
 // ---------------------------------------------------------------------------

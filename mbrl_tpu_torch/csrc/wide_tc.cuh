@@ -1,8 +1,9 @@
-// The wide tensor-core chain of K1 and K2 (sm_90a): any width and depth on
-// wgmma, with the activations streamed from a per-block scratch in device
-// memory beside the weights. wide_tc.cu holds the kernels and the design note;
-// the PTX wrappers, the wgmma products and the operand layouts are the
-// chain's (tc_chain.cuh), which this header reuses unchanged.
+// The wide tensor-core chain of K1, K2 and K3 (sm_90a): any width and depth
+// on wgmma, with the activations streamed from a per-block scratch in device
+// memory beside the weights. wide_tc.cu holds K1, K2 and the design note,
+// ensemble_mlp_wide.cu K3; the PTX wrappers, the wgmma products and the
+// operand layouts are the chain's (tc_chain.cuh), which this header reuses
+// unchanged.
 #pragma once
 
 #include <limits.h>
@@ -114,6 +115,11 @@ __device__ __forceinline__ void stage_wide_input(unsigned char* smem, unsigned c
 // The chain: producer warp and consumer warpgroups. `it` counts ring buffers
 // over the launch on both sides (stage = it % stages, parity = it / stages);
 // the producer's `ready` counts the ready barrier's phases.
+//
+// Timeline marks (-DTC_TIMELINE), product i at j = 3 + 3 min(i, 7): the
+// consumers' j its first chunk landed, j + 1 its products done, j + 2 its
+// epilogue fenced and handed on (the head: whole); the producer's j the
+// ready barrier passed, j + 1 its last copy issued.
 
 __device__ __forceinline__ void init_wide_barriers(const WideDesc& d, unsigned char* smem) {
   if (threadIdx.x == 0) {
@@ -161,11 +167,13 @@ __device__ void produce_wide(const WideDesc& d, const int* __restrict__ dims, un
         if (p0 == 0 && k0 == 0) {  // the product's input is whole
           mbar_wait(bars + WT_READY, ready & 1);
           ++ready;
+          TC_STAMP(3 + 3 * min(i, 7))
         }
         bulk_load(st, a_src + (size_t)k0 * TC_ROWS * C::ESIZE * C::COPIES, a_bytes, bars + 8 * s);
         ++it;
       }
     }
+    TC_STAMP(4 + 3 * min(i, 7))
   }
 }
 
@@ -209,6 +217,7 @@ __device__ void consume_wide(const WideDesc& d, const int* __restrict__ dims, un
         const int kc = min(C::CHUNK, kp - k0);
         const int s = it % d.stages;
         mbar_wait(bars + 8 * s, (it / d.stages) & 1);
+        TC_STAMP_IF(3 + 3 * min(i, 7), p0 == 0 && k0 == 0)
         const uint32_t a = stage0 + s * d.stage_bytes;
         const uint32_t b = a + wt_a_slot<BF16>() + nw * 16;
         issue<BF16>(kc / C::KSTEP, n8, k0 == 0, acc, a, a + TC_ROWS * kc * C::ESIZE, b,
@@ -220,6 +229,7 @@ __device__ void consume_wide(const WideDesc& d, const int* __restrict__ dims, un
       }
       wgmma_wait<0>();
       fence_acc(acc);
+      TC_STAMP_IF(4 + 3 * min(i, 7), p0 + WT_PASS >= np)
       mbar_arrive(bars + 64 + 8 * prev, lane == 0);
       const int n0 = p0 + nw;
       if (hidden) {
@@ -244,9 +254,11 @@ __device__ void consume_wide(const WideDesc& d, const int* __restrict__ dims, un
     if (hidden) {  // the next product's input is written: hand it to the producer
       fence_proxy_async_global();
       mbar_arrive(bars + WT_READY, true);
+      TC_STAMP(5 + 3 * min(i, 7))
     }
   }
   consumer_sync();  // the head is whole
+  TC_STAMP(5 + 3 * min(d.num_products - 1, 7))
 }
 
 // ---------------------------------------------------------------------------

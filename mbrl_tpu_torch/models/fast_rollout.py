@@ -17,8 +17,8 @@ member chain is one call of K2 (stochastic head) or K3 (deterministic head).
 Each wrapper runs its plain PyTorch version on CPU tensors and launches its
 CUDA kernel on CUDA tensors, at any width and depth: the tensor-core chain for
 up to ``MAX_PRODUCTS`` products of at most 256 columns, else the wide route
-(K1 and K2 on the tensor cores with the wide route's tiles, K3 by f32 FMA),
-as :func:`~mbrl_tpu_torch.ops.kernels.takes_chain` picks. The tiles are the
+(on the tensor cores too, with the wide route's tiles), as
+:func:`~mbrl_tpu_torch.ops.kernels.takes_chain` picks. The tiles are the
 model state's (``GaussianMLP.packed``). A wrapper raises only for weights of
 another dtype than f32 or bf16, and for a stack or tiles that do not match
 its dims.

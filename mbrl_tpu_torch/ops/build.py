@@ -114,12 +114,11 @@ SIGNATURES = {
         _U, _U, _P, _P, _P, _P, _P, _P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _LL, _P,
     ],
-    # the wide route: host dims, device dims, ..., scratch and its size. K3's
-    # (csrc/wide_chain.cu) reads the stack's weights, scratch in f32 elements
+    # the wide route (csrc/ensemble_mlp_wide.cu, csrc/wide_tc.cu): pack_wide's
+    # tiles, host dims, device dims, ..., the scratch and its size in bytes
     "mbrl_ensemble_mlp_wide": [
         _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _P,
     ],
-    # K2's and K1's (csrc/wide_tc.cu) read pack_wide's tiles, scratch in bytes
     "mbrl_ensemble_mlp_gaussian_wide": [
         _U, _U, _P, _P, _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _P,
     ],

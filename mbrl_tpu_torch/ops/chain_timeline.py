@@ -11,8 +11,14 @@ barrier after it and the end of its epilogue (for a hidden layer also its
 stores issued and fenced, before the closing barrier), and the sampled output. Then K3
 at the same shape (one tile a block) and at S=20,000 (a persistent block
 walking 11 or 12 tiles): the same marks for the last tile block 0 ran, counted
-from that tile's start, with the block's whole time and its tiles. Needs a
-CUDA device; exits 2 without one.
+from that tile's start, with the block's whole time and its tiles.
+
+Then the wide route at 4x512 (``csrc/wide_tc.cuh``): K2 at config B's shape,
+and K3 at that shape and at S=20,000 (in 23), f32 and bf16, with the marks of
+``produce_wide`` and ``consume_wide`` per product: on the consumers' side its
+first chunk landed, its products done, its epilogue fenced and handed on (the
+head: whole); on the producer's, the ready barrier passed and its last copy
+issued. Needs a CUDA device; exits 2 without one.
 """
 from __future__ import annotations
 
@@ -24,7 +30,10 @@ import torch
 
 SEED = 0
 DIMS = (24, 200, 200, 200, 200, 36)
+WIDE_DIMS = (24, 512, 512, 512, 512, 36)
 MEMBERS, ROWS, OUT = 5, 1600, 18
+LONG_ROWS = 20_000
+PRODUCER = 64  # the producer thread's marks start here (warpgroup 2)
 
 
 def marks(num_products: int):
@@ -40,57 +49,79 @@ def marks(num_products: int):
     return names
 
 
-def _inputs(dtype: torch.dtype, rows: int):
+def wide_marks(num_products: int):
+    """The wide route's marks (``csrc/wide_tc.cuh``): the consumers' and the
+    producer's, by index into the timeline."""
+    names = {0: "start", 1: "barriers", 2: "input"}
+    for i in range(min(num_products, 8)):
+        j = 3 + 3 * i
+        names[j], names[j + 1] = f"p{i}_landed", f"p{i}_products"
+        names[j + 2] = f"p{i}_handed_on" if i + 1 < num_products else f"p{i}_head_whole"
+        names[PRODUCER + j] = f"producer_p{i}_ready_passed"
+        names[PRODUCER + j + 1] = f"producer_p{i}_issued"
+    names[31] = "sampled"
+    return names
+
+
+def _inputs(dtype: torch.dtype, rows: int, dims=DIMS):
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda")
-    ws = [torch.randn((MEMBERS, a, b), generator=g) / a**0.5 for a, b in zip(DIMS[:-1], DIMS[1:])]
-    bs = [0.1 * torch.randn((MEMBERS, 1, b), generator=g) for b in DIMS[1:]]
+    ws = [torch.randn((MEMBERS, a, b), generator=g) / a**0.5 for a, b in zip(dims[:-1], dims[1:])]
+    bs = [0.1 * torch.randn((MEMBERS, 1, b), generator=g) for b in dims[1:]]
     stack = K.pack_mlp([w.to(dev) for w in ws[:-1]], [b.to(dev) for b in bs[:-1]],
                        ws[-1].to(dev), bs[-1].to(dev), "silu", dtype=dtype)
-    x = torch.randn((MEMBERS, rows, DIMS[0]), generator=g).to(dev)
-    return g, x, stack, K.pack_chain(stack)
+    x = torch.randn((MEMBERS, rows, dims[0]), generator=g).to(dev)
+    return g, x, stack, K.pack_tiles(stack)
 
 
 def _read(reader) -> list:
     torch.cuda.synchronize()
-    buf = (ctypes.c_ulonglong * 64)()
+    buf = (ctypes.c_ulonglong * 96)()
     if reader(buf) != 0:
         raise RuntimeError("could not read the timeline")
     return list(buf)
 
 
-def timeline(dtype: torch.dtype, lib) -> dict:
+def _us(buf, names, origin: int) -> dict:
+    return {name: round((buf[k] - buf[origin]) / 1e3, 3) for k, name in sorted(names.items())}
+
+
+def timeline(dtype: torch.dtype, lib, dims=DIMS, reader: str = "mbrl_timeline") -> dict:
     from mbrl_tpu_torch.ops import kernels as K
 
-    g, x, stack, tiles = _inputs(dtype, ROWS)
+    g, x, stack, tiles = _inputs(dtype, ROWS, dims)
     max_lv = torch.full((1, OUT), 0.5, device=x.device)
     min_lv = torch.full((1, OUT), -10.0, device=x.device)
     for _ in range(3):  # the last launch's marks are read
         K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, OUT, tiles=tiles)
-    buf = _read(lib.mbrl_timeline)
-    return {name: round((buf[k] - buf[0]) / 1e3, 3) for k, name in marks(len(DIMS) - 1).items()}
+    buf = _read(getattr(lib, reader))
+    names = marks(len(dims) - 1) if dims == DIMS else wide_marks(len(dims) - 1)
+    return _us(buf, names, 0)
 
 
-def timeline_k3(dtype: torch.dtype, rows: int, lib) -> dict:
+def timeline_k3(dtype: torch.dtype, rows: int, lib, dims=DIMS,
+                reader: str = "mbrl_timeline_k3") -> dict:
     """Block 0's last tile, from that tile's start (mark 29), and the block's
     whole time over its tiles."""
     from mbrl_tpu_torch.ops import kernels as K
 
-    _, x, stack, tiles = _inputs(dtype, rows)
+    _, x, stack, tiles = _inputs(dtype, rows, dims)
     for _ in range(3):
         K.fused_ensemble_mlp(x, stack, tiles=tiles)
-    buf = _read(lib.mbrl_timeline_k3)
-    names = {k: n for k, n in marks(len(DIMS) - 1).items() if 2 <= k < 29}
+    buf = _read(getattr(lib, reader))
+    if dims == DIMS:
+        names = {k: n for k, n in marks(len(dims) - 1).items() if 2 <= k < 29}
+    else:
+        names = {k: n for k, n in wide_marks(len(dims) - 1).items() if 2 <= k < 29 or k > PRODUCER + 2}
     names[30] = "head_written"
     blocks = K.persistent_blocks(rows, MEMBERS, K.sm_count(x.device))
     return {
-        "rows_per_member": rows, "blocks": blocks,
+        "dims": list(dims), "rows_per_member": rows, "blocks": blocks,
         "tiles_of_block_0": len(K.block_tiles(0, rows, MEMBERS, blocks)),
         "block_us": round((buf[30] - buf[0]) / 1e3, 3),
-        "last_tile_us_since_its_start": {n: round((buf[k] - buf[29]) / 1e3, 3)
-                                         for k, n in sorted(names.items())},
+        "last_tile_us_since_its_start": _us(buf, names, 29),
     }
 
 
@@ -102,15 +133,25 @@ def main() -> int:
 
     build.EXTRA_FLAGS = ("-DTC_TIMELINE",)
     lib = build.load_library()
-    lib.mbrl_timeline.argtypes = [ctypes.c_void_p]
-    lib.mbrl_timeline_k3.argtypes = [ctypes.c_void_p]
+    for reader in ("mbrl_timeline", "mbrl_timeline_k3", "mbrl_timeline_wide",
+                   "mbrl_timeline_k3_wide"):
+        getattr(lib, reader).argtypes = [ctypes.c_void_p]
     dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
     for name, dtype in dtypes:
         print(json.dumps({"kernel": "K2", "dtype": name, "us_since_start": timeline(dtype, lib)}),
               flush=True)
-    for rows in (ROWS, 20_000):
+    for rows in (ROWS, LONG_ROWS):
         for name, dtype in dtypes:
             print(json.dumps({"kernel": "K3", "dtype": name, **timeline_k3(dtype, rows, lib)}),
+                  flush=True)
+    for name, dtype in dtypes:
+        print(json.dumps({"kernel": "K2 wide", "dtype": name, "dims": list(WIDE_DIMS),
+                          "us_since_start": timeline(dtype, lib, WIDE_DIMS, "mbrl_timeline_wide")}),
+              flush=True)
+    for rows, dims in ((ROWS, WIDE_DIMS), (LONG_ROWS, (23,) + WIDE_DIMS[1:])):
+        for name, dtype in dtypes:
+            print(json.dumps({"kernel": "K3 wide", "dtype": name,
+                              **timeline_k3(dtype, rows, lib, dims, "mbrl_timeline_k3_wide")}),
                   flush=True)
     return 0
 

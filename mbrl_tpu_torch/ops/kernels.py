@@ -32,12 +32,11 @@ Each wrapper has two routes on the card, picked by :func:`takes_chain` from
 the stack's :class:`ChainLayout`: the tensor-core chain for chains of at most
 ``MAX_PRODUCTS`` products with layers at most ``TC_MAX_WIDTH`` wide, and the
 wide route for any other width and depth, with the same grid and one launch
-per call either way. On the wide route K1 and K2 run on the tensor cores too
-(``csrc/wide_tc.cu``), on weights packed by :func:`pack_wide`
+per call either way. The wide route runs on the tensor cores too (K1 and K2
+in ``csrc/wide_tc.cu``, K3 in ``csrc/ensemble_mlp_wide.cu``, all on
+``csrc/wide_tc.cuh``), on weights packed by :func:`pack_wide`
 (:class:`WideTileLayout`: the chain's layout in passes of ``WIDE_PASS``
-columns) with the activations streamed from a per-block scratch; K3's wide
-route (``csrc/wide_chain.cu``, :class:`WideLayout`) reads the stack's own
-weights by f32 FMA.
+columns) with the activations streamed from a per-block scratch.
 """
 from __future__ import annotations
 
@@ -76,7 +75,7 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 # limits of the tensor-core chain (csrc/tc_chain.cuh): products of one chain,
 # rows of one block's tile, widest layer (two warpgroups of at most 128
 # accumulator columns), stages of the weight ring, and the shared memory a
-# block can use; a stack past them takes the wide route (csrc/wide_chain.cu)
+# block can use; a stack past them takes the wide route (csrc/wide_tc.cuh)
 MAX_PRODUCTS = 9
 MAX_TILE = 64
 TC_MAX_WIDTH = 256
@@ -340,38 +339,6 @@ def unpack_chain(tiles: ChainTiles, i: int) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
-@dataclasses.dataclass(frozen=True)
-class WideLayout:
-    """What the wide route reads (mirrors ``wide_sizes`` in
-    ``csrc/wide_chain.cu``): the stack's own weights, product i's (d_in,
-    d_out) block row-major at :meth:`w_offset` of a member's row of
-    ``MLPStack.ws`` and its bias at :meth:`b_offset`; and the activation
-    scratch of one block, two 64-row buffers at a row stride of the widest
-    layer (``ld``), plus K1's obs carry and running return."""
-
-    dims: Tuple[int, ...]
-
-    @property
-    def ld(self) -> int:
-        return max(self.dims)
-
-    def w_offset(self, i: int) -> int:
-        return sum(a * b for a, b in zip(self.dims[:i], self.dims[1 : i + 1]))
-
-    def b_offset(self, i: int) -> int:
-        return sum(self.dims[1 : i + 1])
-
-    @property
-    def member_elems(self) -> int:
-        return self.w_offset(len(self.dims) - 1)
-
-    def block_floats(self, carry_dim: int = 0) -> int:
-        """f32 scratch one block uses; ``carry_dim`` is K1's obs width (its
-        carry and running return take ``MAX_TILE * (carry_dim + 1)`` more)."""
-        carry = MAX_TILE * (carry_dim + 1) if carry_dim else 0
-        return 2 * MAX_TILE * self.ld + carry
-
-
 def supports_fused_mlp(dims: Sequence[int]) -> bool:
     """Whether K1, K2 and K3 take this chain on the card: any chain of at
     least one product of positive widths, by the tensor-core chain or the
@@ -568,9 +535,9 @@ def _check_stack(stack: MLPStack, device: torch.device) -> None:
     if stack.ws.dtype not in (torch.float32, torch.bfloat16) or stack.bs.dtype != torch.float32:
         raise TypeError(f"weights must be f32/bf16 and biases f32, got {stack.ws.dtype}/{stack.bs.dtype}")
     _check_cuda(device, ws=stack.ws, bs=stack.bs)
-    lay = WideLayout(stack.dims)
-    if (stack.ws.dim() != 2 or stack.ws.shape[1] != lay.member_elems
-            or tuple(stack.bs.shape) != (stack.num_members, lay.b_offset(stack.num_products))):
+    n_w = sum(a * b for a, b in zip(stack.dims[:-1], stack.dims[1:]))
+    if (stack.ws.dim() != 2 or stack.ws.shape[1] != n_w
+            or tuple(stack.bs.shape) != (stack.num_members, sum(stack.dims[1:]))):
         raise ValueError(f"stack {tuple(stack.ws.shape)} / {tuple(stack.bs.shape)} does not "
                          f"match its dims {stack.dims}")
 
@@ -638,15 +605,6 @@ def _device_dims(dims: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(dims, dtype=torch.int32, device=device)
 
 
-def _wide_args(stack: MLPStack, device: torch.device, blocks: int):
-    """K3's wide entry's host dims and device dims, and a fresh scratch for
-    ``blocks`` blocks (the caller keeps it alive until the launch is
-    enqueued)."""
-    scratch = torch.empty(blocks * WideLayout(stack.dims).block_floats(),
-                          dtype=torch.float32, device=device)
-    return _dims_arg(stack), _device_dims(stack.dims, device).data_ptr(), scratch
-
-
 def _wide_scratch(layout: WideTileLayout, device: torch.device, blocks: int,
                   carry_dim: int = 0) -> torch.Tensor:
     """A fresh scratch of ``blocks`` blocks for the wide tensor-core route, in
@@ -659,9 +617,9 @@ def fused_ensemble_mlp(
 ) -> torch.Tensor:
     """K3: per-member-sharded ensemble forward, raw head. x (E, S, in) →
     (E, S, head_out), any head width (``2 * out`` of a Gaussian model, ``out``
-    of a deterministic one). ``tiles`` is ``pack_chain(stack)``, packed here
-    when not given (pack once per rollout or model state); K3's wide route
-    reads the stack itself and ignores it."""
+    of a deterministic one). ``tiles`` is ``pack_tiles(stack)`` (the chain's
+    or the wide route's), packed here when not given (pack once per rollout
+    or model state)."""
     if not _dispatch(x):
         return fused_ensemble_mlp_plain(x, stack)
     from mbrl_tpu_torch.ops.build import load_library
@@ -672,23 +630,20 @@ def fused_ensemble_mlp(
     _check_stack(stack, x.device)
     if e != stack.num_members or din != stack.dims[0] or rows < 1:
         raise ValueError(f"x {tuple(x.shape)} does not match stack dims {stack.dims} (E={stack.num_members})")
+    tiles = _check_tiles(stack, tiles, x.device)
     out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
     lib = load_library()
     blocks = persistent_blocks(rows, e, sm_count(x.device))
     act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
-    if takes_chain(stack.dims, stack.low_precision):
-        tiles = _check_tiles(stack, tiles, x.device)
-        code = lib.mbrl_ensemble_mlp(
-            x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
-            _dims_arg(stack), stack.num_products, e, rows, blocks, act, low,
-            tiles.layout.member_elems, _stream(x.device),
-        )
+    head = (x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(), _dims_arg(stack))
+    tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
+    if not isinstance(tiles.layout, WideTileLayout):
+        code = lib.mbrl_ensemble_mlp(*head, *tail, _stream(x.device))
     else:
-        dims, dims_dev, scratch = _wide_args(stack, x.device, blocks)
+        scratch = _wide_scratch(tiles.layout, x.device, blocks)
         code = lib.mbrl_ensemble_mlp_wide(
-            x.data_ptr(), stack.ws.data_ptr(), stack.bs.data_ptr(), out.data_ptr(), dims,
-            dims_dev, stack.num_products, e, rows, blocks, act, low, stack.ws.shape[1],
-            scratch.data_ptr(), scratch.numel(), _stream(x.device),
+            *head, _device_dims(stack.dims, x.device).data_ptr(), *tail, scratch.data_ptr(),
+            scratch.numel(), _stream(x.device),
         )
     _raise_on_error(code, "fused_ensemble_mlp")
     fused_ensemble_mlp.launches += 1

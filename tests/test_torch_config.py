@@ -132,6 +132,7 @@ def test_chip_smoke_config_m_is_the_loaded_tree_with_its_cuts():
         "algorithm=mbpo", "overrides=mbpo_cartpole", "dynamics_model=gaussian_mlp_ensemble"]))
     published = loaded["overrides"]["num_steps"]
     assert published == 5000 and "dataset_size" not in loaded["algorithm"]
+    assert chip_smoke.M_PUBLISHED_STEPS == published  # what --published-m restores
     # the cuts: two epochs of the loop, the replay buffer kept at the published
     # run's size; and the run saves model, buffer and checkpoint at each retraining
     loaded["overrides"]["num_steps"] = chip_smoke.M_NUM_STEPS

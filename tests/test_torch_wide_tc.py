@@ -1,7 +1,8 @@
-"""The wide tensor-core route of K1 and K2 (``csrc/wide_tc.cu``), on the CPU.
+"""The wide tensor-core route of K1, K2 (``csrc/wide_tc.cu``) and K3
+(``csrc/ensemble_mlp_wide.cu``), on the CPU.
 
-Every stack the tensor-core chain does not take reaches K1 and K2 through this
-route: the weights packed by ``pack_wide`` (``WideTileLayout``: per product,
+Every stack the tensor-core chain does not take reaches K1, K2 and K3 through
+this route: the weights packed by ``pack_wide`` (``WideTileLayout``: per product,
 per pass of up to 256 output columns, per K chunk, in ``wgmma``'s layout, f32
 as tf32 hi and lo copies), the activations streamed from a per-block scratch.
 These tests check, without a GPU:
@@ -13,9 +14,11 @@ These tests check, without a GPU:
 - the scratch and the shared-memory plan that ``make_wide_desc`` mirrors;
 - a chunk-by-chunk emulation of the kernel's products on the packed tiles
   (3xTF32 for f32: a_lo w_hi + a_hi w_lo + a_hi w_hi; bf16 operands for
-  bf16), with its padding, masks and rounding points, through K2's and K1's
-  heads: f32 against the JAX kernels in interpret mode, bf16 against the
-  plain versions;
+  bf16), with its padding, masks and rounding points, through K3's raw head
+  (Gaussian and deterministic) and K2's and K1's Gaussian heads: f32 against
+  the JAX kernels in interpret mode, bf16 against the plain versions;
+- K3's schedule: the persistent blocks walk every (member, row tile) pair
+  once, ragged tiles included, and its scratch is sized for those blocks;
 - the wrappers' CUDA branch against a stand-in library: the wide entries get
   ``pack_wide``'s tiles and a scratch of the layout's size, and tiles of
   another stack or packed for the other route are refused.
@@ -42,6 +45,7 @@ WIDE_DIMS = {
     "w600": (23, 600, 36),  # three passes, the last 88 (f32) or 96 (bf16) wide
     "w1024": (24, 1024, 1024, 36),
     "deep12": (24,) + (64,) * 11 + (36,),  # 12 products
+    "det18": (24, 300, 300, 18),  # a deterministic model's head: out, not 2 x out
 }
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -67,14 +71,15 @@ def test_each_weight_lands_where_the_kernel_reads_it(name, dt):
         k_last, n_last = dims[i] - 1, dims[i + 1] - 1
         for k, n in {(0, 0), (k_last, n_last), (k_last // 2, n_last), (min(k_last, 17), min(n_last, 263))}:
             ws = torch.zeros_like(stack.ws)
-            ws[0, tk.WideLayout(dims).w_offset(i) + k * dims[i + 1] + n] = 1.0
+            w0 = sum(a * b for a, b in zip(dims[:i], dims[1 : i + 1]))  # product i in MLPStack.ws
+            ws[0, w0 + k * dims[i + 1] + n] = 1.0
             tiles = tk.pack_wide(tk.MLPStack(ws, stack.bs, dims, "silu"))
             hot = torch.nonzero(tiles.w[0]).flatten().tolist()
             assert hot == [_offset(lay, i, k, n)], (i, k, n)
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("name", list(WIDE_DIMS))
+@pytest.mark.parametrize("name", [n for n in WIDE_DIMS if n != "det18"])
 def test_wide_tiles_unpack_to_the_padded_weights(name, dt):
     dims = WIDE_DIMS[name]
     stack = _stack(dims, DTYPES[dt], seed=1, e=3)
@@ -119,7 +124,7 @@ def test_the_tf32_split_rounds_to_nearest_ties_away():
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("name", list(WIDE_DIMS))
+@pytest.mark.parametrize("name", [n for n in WIDE_DIMS if n != "det18"])
 def test_the_scratch_and_the_ring_mirror_make_wide_desc(name, dt):
     dims = WIDE_DIMS[name]
     low = dt == "bf16"
@@ -208,6 +213,18 @@ def emulated_chain(monkeypatch):
     monkeypatch.setattr(tk, "_plain_chain", chain)
 
 
+@pytest.mark.parametrize("name", ["w300", "deep12", "det18"])
+def test_emulated_k3_matches_the_jax_kernel(name, emulated_chain):
+    e, dims = 2, WIDE_DIMS[name]
+    stack = _stack(dims, torch.float32, seed=12, e=e)
+    x = np.random.default_rng(13).standard_normal((e, 24, dims[0])).astype(np.float32)
+    ref = pk.fused_ensemble_mlp(jnp.asarray(x), *_jax_weights(stack),
+                                activation=_ACTIVATIONS["silu"], tile=8, interpret=True)
+    got = tk.fused_ensemble_mlp(torch.from_numpy(x), stack)  # the plain version on the CPU
+    assert got.shape == (e, 24, dims[-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref, np.float32), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["w300", "deep12"])
 def test_emulated_k2_matches_the_jax_kernel(name, emulated_chain):
     e, dims = 2, WIDE_DIMS[name]
@@ -252,14 +269,15 @@ def test_emulated_k1_matches_the_jax_kernel(name, emulated_chain):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref, np.float32), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["w300", "w600", "deep12"])
+@pytest.mark.parametrize("name", ["w300", "w600", "deep12", "det18"])
 def test_emulated_bf16_matches_the_plain_versions(name):
     e, dims = 2, WIDE_DIMS[name]
     out = dims[-1] // 2
     stack = _stack(dims, torch.bfloat16, seed=10, e=e)
     x = torch.from_numpy(np.random.default_rng(11).standard_normal((e, 37, dims[0])).astype(np.float32))
     got = _emulated_wide_tc_chain(x, stack, tk.pack_wide(stack))
-    torch.testing.assert_close(got, tk.fused_ensemble_mlp_plain(x, stack), rtol=1e-2, atol=1e-2)
+    # K3's raw head (both kinds), then K2's mean of a Gaussian head
+    torch.testing.assert_close(got, tk.fused_ensemble_mlp(x, stack), rtol=1e-2, atol=1e-2)
     maxlv, minlv = (torch.from_numpy(b) for b in _bounds(out))
     g = torch.Generator().manual_seed(0)
     mean = tk.fused_ensemble_mlp_gaussian_plain(g, x, stack, maxlv, minlv, out, sample=False)
@@ -276,6 +294,7 @@ def test_the_wide_entries_get_wide_tiles_and_their_scratch(fake_card, name, dt):
     tiles = tk.pack_wide(stack)
     g = torch.Generator().manual_seed(0)
     lv = torch.zeros((1, 18))
+    tk.fused_ensemble_mlp(torch.zeros((5, 100, 24)), stack, tiles=tiles)
     tk.fused_ensemble_mlp_gaussian(g, torch.zeros((5, 100, 24)), stack, lv, lv, 18, tiles=tiles)
     stack1 = _stack((23,) + dims[1:], DTYPES[dt], e=5)
     lay1 = tk.WideTileLayout(stack1.dims, stack1.low_precision)
@@ -286,14 +305,71 @@ def test_the_wide_entries_get_wide_tiles_and_their_scratch(fake_card, name, dt):
         torch.zeros((batch, horizon, 6)), torch.ones((1, 17)), stack1, lv, lv, 18, 64,
         tiles=tiles1,
     )
-    (k2, a2), (k1, a1) = lib.calls
-    assert (k2, k1) == ("mbrl_ensemble_mlp_gaussian_wide", "mbrl_rollout_returns_wide")
+    (k3, a3), (k2, a2), (k1, a1) = lib.calls
+    assert (k3, k2, k1) == ("mbrl_ensemble_mlp_wide", "mbrl_ensemble_mlp_gaussian_wide",
+                            "mbrl_rollout_returns_wide")
+    assert a3[1] == tiles.w.data_ptr() and a3[11] == int(stack.low_precision)
+    assert a3[12] == lay.member_elems
+    assert a3[9] == tk.persistent_blocks(100, 5, 132)
+    assert a3[-2] == a3[9] * lay.block_bytes()  # persistent blocks, no K1 carry
     assert a2[3] == tiles.w.data_ptr() and a2[17] == lay.member_elems
     assert a2[-2] == 2 * 5 * lay.block_bytes()  # (tiles, E) blocks
     assert a1[6] == tiles1.w.data_ptr() and a1[24] == lay1.member_elems
     assert a1[-2] == (batch // 64) * lay1.block_bytes(17)  # one block per row tile
-    assert tk.launch_counts()["fused_rollout_returns"] == 1
-    assert tk.launch_counts()["fused_ensemble_mlp_gaussian"] == 1
+    assert tk.launch_counts() == {"fused_rollout_returns": 1, "fused_ensemble_mlp_gaussian": 1,
+                                  "fused_ensemble_mlp": 1}
+
+
+@pytest.mark.parametrize("rows,members", [(1600, 5), (20_000, 5), (100, 5), (1, 1)],
+                         ids=["C8k", "C100k", "ragged", "one_row"])
+def test_k3_blocks_walk_every_tile_once(rows, members):
+    """K3's persistent schedule at one tile a block (8,000 rows on 132 SMs:
+    125 pairs), at many (100,000 rows: 1,565 pairs), and over ragged tiles."""
+    num_tiles = -(-rows // tk.MAX_TILE)
+    pairs = members * num_tiles
+    blocks = tk.persistent_blocks(rows, members, 132)
+    assert blocks == min(pairs, 132)
+    walks = [tk.block_tiles(b, rows, members, blocks) for b in range(blocks)]
+    # every (member, tile) pair once, each block member-major in its walk
+    assert sorted(p for w in walks for p in w) == [(m, t) for m in range(members) for t in range(num_tiles)]
+    assert all(w == sorted(w) for w in walks)
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+    assert max(map(len, walks)) == -(-pairs // blocks)
+    # the ragged last tile of each member holds the rows left over
+    last = rows - (num_tiles - 1) * tk.MAX_TILE
+    assert 1 <= last <= tk.MAX_TILE and (last == tk.MAX_TILE) == (rows % tk.MAX_TILE == 0)
+
+
+@pytest.mark.parametrize("rows", [1600, 20_000], ids=["C8k", "C100k"])
+def test_k3_wide_scratch_is_sized_for_persistent_blocks(fake_card, rows):
+    dims = (23, 512, 512, 512, 512, 36)
+    stack = _stack(dims, torch.bfloat16, e=5)
+    tk.fused_ensemble_mlp(torch.zeros((5, rows, 23)), stack)
+    ((name, args),) = fake_card.calls
+    lay = tk.WideTileLayout(dims, True)
+    blocks, pairs = tk.persistent_blocks(rows, 5, 132), 5 * -(-rows // tk.MAX_TILE)
+    assert name == "mbrl_ensemble_mlp_wide" and args[8:10] == (rows, blocks)
+    assert args[-2] == blocks * lay.block_bytes()
+    assert (blocks < pairs) == (rows == 20_000)  # past one wave the blocks walk tiles
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_k3_refuses_chain_tiles_for_a_wide_stack(fake_card, dt):
+    lib = fake_card
+    x = torch.zeros((5, 64, 24))
+    wide = _stack(WIDE_DIMS["w300"], DTYPES[dt], e=5)
+    narrow = _stack((24, 200, 200, 36), DTYPES[dt], e=5)
+    for stack, tiles in ((wide, tk.pack_chain(wide)), (narrow, tk.pack_wide(narrow)),
+                         (wide, tk.pack_wide(_stack(WIDE_DIMS["w264"], DTYPES[dt], e=5)))):
+        with pytest.raises(ValueError):
+            tk.fused_ensemble_mlp(x, stack, tiles=tiles)
+    assert not lib.calls
+    # packed here when none are given, for the route the stack takes
+    tk.fused_ensemble_mlp(x, wide)
+    tk.fused_ensemble_mlp(x, narrow)
+    assert [c[0] for c in lib.calls] == ["mbrl_ensemble_mlp_wide", "mbrl_ensemble_mlp"]
+    assert lib.calls[0][1][12] == tk.WideTileLayout(wide.dims, wide.low_precision).member_elems
+    assert lib.calls[1][1][11] == tk.ChainLayout(narrow.dims, narrow.low_precision).member_elems
 
 
 def test_tiles_of_another_stack_or_route_are_refused(fake_card):
