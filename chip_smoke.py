@@ -58,6 +58,15 @@ with random weights from a seed:
      out 18, 4x200) and SAC (512 wide, batch 256): imagined rollouts of
      100,000 rows (length 1, then 5), three bundles of 10 SAC updates, and
      one SAC update on the card against the CPU
+  PN  a whole PlaNet run, ``algorithms.planet.train`` at ``dynamics_model/planet.yaml``'s
+     full width (3x64x64 pixels, conv encoder to 1,024, belief 200, latent 30,
+     hidden 200) with ``planet_cheetah_run``'s values (100 updates of 50
+     windows of 50 steps an episode, CEM 1,000 x 12 x 10 in latent space, 5
+     random trajectories of 250 steps), on a numpy stand-in for dm_control's
+     cheetah-run (``PixelCheetah``). The cuts: ``num_episodes`` 1,000 -> 2
+     (a test episode, then one with exploration noise) and ``dataset_size``
+     1,000,000 -> 2,000. No K1-K3 launch; then the eval_score, the loss with
+     fixed normals and its gradient on the card against the CPU, full float32
 
 and checks that each config's launches went through its kernel, that the
 rollout on the card agrees with the plain CPU path on an identical-member
@@ -1624,6 +1633,324 @@ def mbpo_kernel_checks():
     return results
 
 
+# --------------------------------------------------------------------------- #
+# Config PN: PlaNet at dynamics_model/planet.yaml's full width
+# --------------------------------------------------------------------------- #
+# the cuts: two episodes (the first a test episode, the second with
+# exploration noise) of the published 1,000, and a replay buffer of 2,000 rows,
+# which holds the 1,750 the run collects (the published 1,000,000 pixel rows
+# would take ~24.6 GB of host memory)
+PN_EPISODES, PN_DATASET_SIZE = 2, 2000
+PN_PUBLISHED = {"num_episodes": 1000, "dataset_size": 1_000_000}
+ACT_PN = 6
+# the fixed card-vs-CPU batch, and its tolerance (relative to the largest
+# entry of each compared array): full float32 on both sides, differing by
+# summation order only; TF32 would miss it (its error is printed beside)
+PN_CHECK_B, PN_CHECK_L, PN_TOL = 2, 8, 1e-4
+_CEM_PN = {
+    "_target_": "mbrl_tpu_torch.planning.CEMOptimizer",
+    "num_iterations": 10, "elite_ratio": 0.1, "population_size": 1000, "alpha": 0.0,
+    "lower_bound": "???", "upper_bound": "???", "return_mean_elites": True,
+    "clipped_normal": True,
+}
+# examples/conf/main.yaml with algorithm=planet, dynamics_model=planet,
+# overrides=planet_cheetah_run, interpolations resolved; tests/test_torch_config.py
+# holds it equal to the loaded YAML tree apart from the two cuts
+CONFIG_PN = {
+    "algorithm": {
+        "name": "planet",
+        "agent": {
+            "_target_": "mbrl_tpu_torch.planning.TrajectoryOptimizerAgent",
+            "action_lb": "???", "action_ub": "???", "planning_horizon": 12,
+            "optimizer": copy.deepcopy(_CEM_PN), "replan_freq": 1, "keep_last_solution": False,
+            "verbose": False,
+        },
+        "num_initial_trajectories": 5, "action_noise_std": 0.3, "test_frequency": 25,
+        "num_episodes": PN_EPISODES, "dataset_size": PN_DATASET_SIZE,
+    },
+    "dynamics_model": {
+        "_target_": "mbrl_tpu_torch.models.PlaNetModel",
+        "obs_shape": [3, 64, 64], "obs_encoding_size": 1024,
+        "encoder_config": [[3, 32, 4, 2], [32, 64, 4, 2], [64, 128, 4, 2], [128, 256, 4, 2]],
+        "decoder_config": [[1024, 1, 1], [[1024, 128, 5, 2], [128, 64, 5, 2], [64, 32, 6, 2],
+                                          [32, 3, 6, 2]]],
+        "action_size": "???", "hidden_size_fcs": 200, "belief_size": 200, "latent_state_size": 30,
+        "min_std": 0.1, "free_nats": 3, "kl_scale": 1.0, "grad_clip_norm": 1000.0,
+    },
+    "overrides": {
+        "env": "dmcontrol___cheetah--run",
+        "env_cfg": {
+            "_target_": "mbrl_tpu_torch.util.dmcontrol_wrapper.make", "domain_name": "cheetah",
+            "task_name": "run", "seed": 0, "visualize_reward": False, "from_pixels": True,
+            "height": 64, "width": 64, "frame_skip": 4, "bit_depth": 5,
+        },
+        "term_fn": "no_termination", "learned_rewards": True, "trial_length": 250,
+        "action_noise_std": 0.3, "num_grad_updates": 100, "sequence_length": 50,
+        "batch_size": 50, "free_nats": 3, "kl_scale": 1.0, "planning_horizon": 12,
+        "cem_num_iters": 10, "cem_elite_ratio": 0.1, "cem_population_size": 1000,
+        "cem_alpha": 0.0, "cem_clipped_normal": True,
+    },
+    "action_optimizer": copy.deepcopy(_CEM_PN),
+    "parallel": {"enable": False},
+    "seed": 0, "log_frequency_agent": 1000, "save_video": False, "debug_mode": False,
+    "experiment": "default", "root_dir": "./exp",
+}
+
+
+class PixelCheetah:
+    """A numpy stand-in for dm_control's cheetah-run as planet_cheetah_run.yaml
+    sees it (the card's machine has no dm_control): uint8 (3, 64, 64) frames
+    at 5 bits a channel, rendered from a small state (six joint angles and a
+    forward position), six actions in [-1, 1], a reward from the forward
+    speed. A test fixture of this script, not a part of the package."""
+
+    def __init__(self, seed: int = SEED, size: int = 64, bit_depth: int = 5):
+        from mbrl_tpu_torch.envs.spaces import Box
+
+        self.observation_space = Box(0, 255, shape=(3, size, size), dtype=np.uint8)
+        self.action_space = Box(-1.0, 1.0, shape=(ACT_PN,), dtype=np.float32, seed=seed)
+        self._rng = np.random.default_rng(seed)
+        self._yy, self._xx = np.mgrid[0:size, 0:size]
+        self._size, self._ratio = size, 2 ** (8 - bit_depth)
+
+    def reset(self, seed=None, options=None):
+        self.q, self.qd = self._rng.uniform(-0.1, 0.1, ACT_PN), np.zeros(ACT_PN)
+        self.x, self.xd = 0.0, 0.0
+        return self._render(), {}
+
+    def step(self, action):
+        a = np.clip(np.asarray(action, np.float64), -1.0, 1.0)
+        self.qd = 0.9 * self.qd + 0.3 * a - 0.05 * np.sin(self.q)
+        self.q = self.q + 0.1 * self.qd
+        # the back leg pushes, the front leg pulls
+        self.xd = 0.9 * self.xd + 0.1 * float(np.sum(self.qd[:3] * np.cos(self.q[:3]))
+                                                - np.sum(self.qd[3:] * np.cos(self.q[3:])))
+        self.x += 0.1 * self.xd
+        reward = float(np.clip(self.xd, 0.0, 1.0)) - 0.01 * float(np.sum(a * a))
+        return self._render(), reward, False, False, {}
+
+    def _render(self) -> np.ndarray:
+        s = self._size
+        img = np.full((3, s, s), 60, np.float64)
+        img[1, 3 * s // 4:] = 120  # the ground
+        img[2] += 40 * (((self._xx + int(8 * self.x)) % 16) < 8)  # stripes that scroll with x
+        for leg, hip in ((0, s // 3), (1, 2 * s // 3)):
+            y, x = s / 2, float(hip)
+            for j in range(3):  # a chain of three joints, one blob each
+                angle = self.q[3 * leg + j] + j * 0.4
+                y, x = y + 6 * np.cos(angle), x + 6 * np.sin(angle)
+                blob = (self._yy - y) ** 2 + (self._xx - x) ** 2 < 9
+                img[:, blob] = np.array([200, 80 + 40 * j, 255 - 100 * leg])[:, None]
+        img = img.astype(np.uint8)
+        return (img // self._ratio) * self._ratio
+
+
+def _stamp(device: str):
+    """A point on the device's timeline (a recorded CUDA event), or the host
+    clock on the CPU, where every op has finished when it returns."""
+    if device == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _between_ms(a, b) -> float:
+    """ms between two stamps (CUDA events once the device has passed both)."""
+    return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
+
+
+def planet_config_pn(device: str = "cuda", config=None):
+    """``planet.train`` on :class:`PixelCheetah` with ``CONFIG_PN``. Returns the
+    run's numbers and its work directory (the caller removes it)."""
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_planet_")
+    try:
+        return _planet_config_pn(device, config, work_dir), work_dir
+    except BaseException:
+        shutil.rmtree(work_dir, ignore_errors=True)
+        raise
+
+
+def _planet_config_pn(device, config, work_dir):
+    import contextlib
+    import io
+    from unittest import mock
+
+    from mbrl_tpu_torch.algorithms import planet
+    from mbrl_tpu_torch.config import Config
+    from mbrl_tpu_torch.models import ModelTrainer, PlaNetModel
+    from mbrl_tpu_torch.planning import TrajectoryOptimizerAgent
+
+    cfg = Config(copy.deepcopy(CONFIG_PN if config is None else config))
+    env = RecordingEnv(PixelCheetah())
+    acts = _Timed(TrajectoryOptimizerAgent, "act", device)
+    posteriors = _Timed(PlaNetModel, "update_posterior", device)
+    trainings = _Timed(ModelTrainer, "train_device_sequences", device)
+    # each update's start on the device's timeline, and its loss components
+    starts, calls, metas = [], [], []
+    loss = ModelTrainer._loss
+
+    def timed_loss(self, work, batch, generator):
+        starts.append(_stamp(device))
+        out = loss(self, work, batch, generator)
+        metas.append({k: v.detach() for k, v in out[1].items()})
+        return out
+
+    def train(self, *a, **kw):
+        first = len(starts)
+        out = trainings(self, *a, **kw)
+        calls.append(starts[first:] + [_stamp(device)])
+        return out
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(TrajectoryOptimizerAgent, "act", lambda s, *a, **k: acts(s, *a, **k)), \
+            mock.patch.object(PlaNetModel, "update_posterior",
+                              lambda s, *a, **k: posteriors(s, *a, **k)), \
+            mock.patch.object(ModelTrainer, "train_device_sequences", train), \
+            mock.patch.object(ModelTrainer, "_loss", timed_loss), \
+            contextlib.redirect_stdout(io.StringIO()):
+        mean_reward = planet.train(env, cfg, silent=False, work_dir=work_dir, device=device)
+        sync(device)
+        total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+
+    episodes, trial = cfg.algorithm.num_episodes, cfg.overrides.trial_length
+    updates = cfg.overrides.num_grad_updates
+    check(len(trainings.calls) == episodes and len(starts) == episodes * updates,
+          f"config PN: {len(trainings.calls)} trainings, {len(starts)} updates")
+    check(len(acts.calls) == len(posteriors.calls) == episodes * trial,
+          f"config PN: {len(acts.calls)} acts, {len(posteriors.calls)} posterior updates")
+    taken = np.asarray(env.actions[cfg.algorithm.num_initial_trajectories * trial:])
+    check(taken.shape == (episodes * trial, ACT_PN) and bool(np.isfinite(taken).all())
+          and bool((np.abs(taken) <= 1.0).all()), "config PN: actions not finite or out of bounds")
+    update_ms = [_between_ms(c[i], c[i + 1]) for c in calls for i in range(len(c) - 1)]
+    host = {k: torch.stack([m[k] for m in metas]).cpu().numpy() for k in metas[0]}
+    check(all(bool(np.isfinite(v).all()) for v in host.values()), "config PN: non-finite losses")
+    work = pathlib.Path(work_dir)
+    for name in ("metrics", "results", "model_train"):
+        log = read_csv(work / f"{name}.csv")
+        check(all(bool(np.isfinite(v).all()) for v in log.values()), f"config PN: {name}.csv {log}")
+    model = trainings.calls[-1][1][0].model
+    state = model.load(model.init(torch.Generator().manual_seed(0)), work)
+    final = trainings.calls[-1][3][0]["params"]
+    check(bool(torch.equal(state["params"]["belief_gru"]["w_hh"], final["belief_gru"]["w_hh"])),
+          "planet.pkl: not the last training's params")
+
+    out = {
+        "episodes": episodes, "published": PN_PUBLISHED, "updates": len(starts),
+        "planned_steps": len(acts.calls), "total_s": total_s, "mean_episode_reward": float(mean_reward),
+        "episode_rewards": env.episode_rewards[cfg.algorithm.num_initial_trajectories:],
+        "update_ms_median": float(np.median(update_ms)),
+        "update_ms_p90": float(np.percentile(update_ms, 90)),
+        "train_call_ms": [c[0] for c in trainings.calls],
+        "act_ms_median": float(np.median([c[0] for c in acts.calls])),
+        "act_ms_p90": float(np.percentile([c[0] for c in acts.calls], 90)),
+        "posterior_ms_median": float(np.median([c[0] for c in posteriors.calls])),
+        "max_memory_allocated_gb": peak_gb,
+        "losses_first": {k: float(v[0]) for k, v in host.items()},
+        "losses_last": {k: float(v[-1]) for k, v in host.items()},
+    }
+    if device == "cuda":
+        trainer, t_state, dataset, t_starts = trainings.calls[-1][1][:4]
+        kw = {**trainings.calls[-1][2], "num_updates": 1, "batch_callback": None}
+        out["update_profile"] = profile_busy(lambda: trainings.orig(trainer, t_state, dataset,
+                                                                    t_starts, **kw))
+        agent, obs = acts.calls[-1][1][:2]
+        out["act_profile"] = profile_busy(lambda: acts.orig(agent, obs))
+        out["noise_draws"] = planet_noise_draws(model, agent)
+    return out
+
+
+def planet_noise_draws(model, agent, reps: int = 5):
+    """What one plan's prior normals cost (10 CEM iterations x 12 steps of
+    (1,000, 30)): drawn per step from the agent's host generator and copied
+    to the card (120 draws), against PlaNetModel.prepare_rollout's one draw of
+    (12, 1,000, 30) a rollout on the card (10 draws). ms per plan."""
+    from mbrl_tpu_torch.device import randn
+
+    optimizer = agent.optimizer.optimizer
+    iters, pop = optimizer.num_iterations, optimizer.population_size
+    horizon = agent.optimizer.horizon
+    ms_state = {"latent": torch.zeros((pop, model.latent_state_size), device="cuda")}
+    g = torch.Generator().manual_seed(SEED)
+
+    def host():
+        for _ in range(iters * horizon):
+            randn(g, (pop, model.latent_state_size), "cuda")
+
+    def card():
+        for _ in range(iters):
+            model.prepare_rollout(None, ms_state, horizon, g)
+
+    return {"host_per_step_ms": time_ms(host, reps), "card_per_rollout_ms": time_ms(card, reps),
+            "draws": [iters * horizon, iters]}
+
+
+def planet_card_vs_cpu():
+    """PlanetModel at CONFIG_PN's width on one fixed batch (B = PN_CHECK_B,
+    L = PN_CHECK_L, seeded pixels, actions, rewards and normals), card against
+    CPU: the deterministic eval_score and its components, and the loss with
+    fixed normals and its gradient, in full float32; then the eval_score that
+    TF32 (cuDNN's default on this card) would give, for the record."""
+    from mbrl_tpu_torch.models import PlaNetModel
+    from mbrl_tpu_torch.ops.tree import tree_leaves_with_path, tree_map
+    from mbrl_tpu_torch.types import TransitionBatch
+
+    kw = {k: v for k, v in CONFIG_PN["dynamics_model"].items() if k != "_target_"}
+    kw["action_size"] = ACT_PN
+    b, length, s = PN_CHECK_B, PN_CHECK_L, kw["latent_state_size"]
+    rng = np.random.default_rng(SEED + 40)
+    obs = rng.integers(0, 256, (b, length, *kw["obs_shape"])).astype(np.uint8)
+    act = rng.uniform(-1, 1, (b, length, ACT_PN)).astype(np.float32)
+    rew = rng.standard_normal((b, length)).astype(np.float32)
+    flags = np.zeros((b, length), bool)
+    post, prior = rng.standard_normal((2, b, length - 1, s)).astype(np.float32)
+    cpu_state = PlaNetModel(**kw, device="cpu").init(torch.Generator().manual_seed(SEED + 41))
+
+    def run(model):
+        dev = model.device
+        state = tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t, cpu_state)
+        batch = TransitionBatch(*(torch.as_tensor(x, device=dev)
+                                  for x in (obs, act, obs, rew, flags, flags)))
+        with torch.no_grad():
+            score, meta = model.eval_score(state, batch)
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(True), state["params"])
+        loss, _ = model.loss({**state, "params": params}, batch,
+                             post_noise=torch.as_tensor(post, device=dev),
+                             prior_noise=torch.as_tensor(prior, device=dev))
+        with model.precision():
+            loss.backward()
+        grads = [t.grad.cpu() for _, t in tree_leaves_with_path(params)]
+        parts = torch.cat([score.reshape(-1), *(v.reshape(1) for v in meta.values())])
+        return parts.cpu(), loss.detach().cpu(), grads
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    cudnn_tf32, matmul = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    card, cpu = run(PlaNetModel(**kw, device="cuda")), run(PlaNetModel(**kw, device="cpu"))
+    check((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+          == (cudnn_tf32, matmul), "config PN: PlaNet left the TF32 flags changed")
+    out = {"batch": [b, length], "tol": PN_TOL, "eval_score_rel_err": rel(card[0], cpu[0]),
+           "loss_card": float(card[1]), "loss_cpu": float(cpu[1]),
+           "loss_rel_err": rel(card[1], cpu[1]),
+           "grad_max_rel_err": max(rel(a, b) for a, b in zip(card[2], cpu[2]))}
+    check(max(out["eval_score_rel_err"], out["loss_rel_err"], out["grad_max_rel_err"]) <= PN_TOL,
+          f"config PN card vs CPU: {out}")
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        tf32 = run(PlaNetModel(**kw, matmul_precision="default", device="cuda"))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.set_float32_matmul_precision(matmul)
+    out["tf32_eval_score_rel_err"] = rel(tf32[0], cpu[0])
+    out["tf32_grad_max_rel_err"] = max(rel(a, b) for a, b in zip(tf32[2], cpu[2]))
+    return out
+
+
 def published_config_e() -> int:
     """Config E alone at the published ``num_steps`` (5,000 planned steps,
     100 retrainings): its trial rewards, plan and retraining times, and the
@@ -1815,6 +2142,18 @@ def main(argv=None) -> int:
     check(counts_mhc == want_mhc, f"config M-HC: expected launches {want_mhc}, got {counts_mhc}")
     print("config M-HC SAC update, card vs CPU: " + json.dumps(sac_update_card_vs_cpu()), flush=True)
 
+    # config PN: PlaNet's training, posterior updates and latent planning
+    # launch none of K1-K3 (its convolutions and narrow products are cuDNN's
+    # and cuBLAS's in full float32); then card against CPU on a fixed batch
+    print(f"config PN: num_episodes cut from {PN_PUBLISHED['num_episodes']} to {PN_EPISODES}, "
+          f"dataset_size from {PN_PUBLISHED['dataset_size']} to {PN_DATASET_SIZE}", flush=True)
+    (planet_numbers, pn_dir), counts_pn = counted(planet_config_pn)
+    shutil.rmtree(pn_dir, ignore_errors=True)
+    print("config PN planet.train: " + json.dumps(planet_numbers) + f"  launches {counts_pn}",
+          flush=True)
+    check(counts_pn == only_k3(0), f"config PN: expected no kernel launch, got {counts_pn}")
+    print("config PN card vs CPU: " + json.dumps(planet_card_vs_cpu()), flush=True)
+
     # K3 several times, each row checked and timed at the shape that its
     # launches had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout
     # steps, M's imagined rollouts; the wide route's rows at 512 columns
@@ -1874,6 +2213,9 @@ def main(argv=None) -> int:
                           "env_step_ms_median", "retrain_ms", "rollout_ms", "sac_updates_per_s",
                           "total_s")},
                       "mbpo_MHC": {k: mhc[k] for k in ("rollout_ms", "sac_updates_per_s")},
+                      "planet_PN": {k: planet_numbers[k] for k in (
+                          "update_ms_median", "act_ms_median", "act_ms_p90",
+                          "posterior_ms_median", "max_memory_allocated_gb", "total_s")},
                       "build_s": build_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,4 +1,4 @@
-"""Model-based RL algorithms: PETS and MBPO."""
-from . import mbpo, pets
+"""Model-based RL algorithms: PETS, MBPO and PlaNet."""
+from . import mbpo, pets, planet
 
-__all__ = ["pets", "mbpo"]
+__all__ = ["pets", "mbpo", "planet"]

@@ -17,6 +17,14 @@ this module never sees JAX.
 counter, and the three optax Adam states (``mu``, ``nu``, ``count``) as
 ``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq`` and ``step``, so that both
 packages can be stepped from one mid-training state.
+
+:func:`convert_planet_state` turns the JAX package's ``PlaNetModel`` state
+(``mbrl_tpu/models/planet.py:141-174``) into the port's: the encoder convs
+(OIHW) and optional head, the decoder's linear layer and deconvs
+((in_ch, out_ch, k, k)), ``belief_embed``, the GRU (``w_ih`` (in, 3h),
+``w_hh`` (h, 3h), gates (r, z, n)), the prior, posterior and reward MLPs, and
+the tracked posterior. Both packages keep this layout, so the converter
+checks it and changes no array.
 """
 from __future__ import annotations
 
@@ -162,3 +170,61 @@ def convert_sac_state(sac, state):
     _load_adam(out.alpha_opt, [("log_alpha", out.log_alpha)], _field(state, "alpha_opt"),
                lambda x: {"log_alpha": x})
     return out
+
+
+def _planet_linear(layer, dev) -> Dict[str, torch.Tensor]:
+    w, b = np.asarray(layer["w"]), np.asarray(layer["b"])
+    if w.ndim != 2 or b.shape != (w.shape[1],):
+        raise ValueError(f"a linear layer's w must be (d_in, d_out) with b (d_out,); got "
+                         f"{w.shape} and {b.shape}")
+    return {"w": _tensor(w, dev), "b": _tensor(b, dev)}
+
+
+def _planet_conv(layer, dev, out_axis: int) -> Dict[str, torch.Tensor]:
+    w, b = np.asarray(layer["w"]), np.asarray(layer["b"])
+    if w.ndim != 4 or b.shape != (w.shape[out_axis],):
+        raise ValueError(f"a conv weight must be 4-D with a bias per output channel (axis "
+                         f"{out_axis}); got {w.shape} and {b.shape}")
+    return {"w": _tensor(w, dev), "b": _tensor(b, dev)}
+
+
+def convert_planet_params(params: Mapping[str, Any], device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """JAX PlaNet params (numpy leaves) → the port's params dict."""
+    dev = resolve_device(device)
+
+    def mlp(layers):
+        return [_planet_linear(l, dev) for l in layers]
+
+    enc = params["encoder"]
+    encoder: Dict[str, Any] = {"convs": [_planet_conv(c, dev, 0) for c in enc["convs"]]}
+    if "fc" in enc:
+        encoder["fc"] = _planet_linear(enc["fc"], dev)
+    gru = {k: np.asarray(params["belief_gru"][k]) for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
+    hid = gru["w_hh"].shape[0]
+    if (gru["w_hh"].shape != (hid, 3 * hid) or gru["w_ih"].shape[1] != 3 * hid
+            or gru["b_ih"].shape != (3 * hid,) or gru["b_hh"].shape != (3 * hid,)):
+        raise ValueError("belief_gru must hold w_ih (in, 3h), w_hh (h, 3h), b_ih and b_hh (3h,); "
+                         f"got {({k: v.shape for k, v in gru.items()})}")
+    return {
+        "belief_embed": _planet_linear(params["belief_embed"], dev),
+        "belief_gru": {k: _tensor(v, dev) for k, v in gru.items()},
+        "prior": mlp(params["prior"]),
+        "encoder": encoder,
+        "posterior": mlp(params["posterior"]),
+        "decoder": {
+            "fc": _planet_linear(params["decoder"]["fc"], dev),
+            "deconvs": [_planet_conv(c, dev, 1) for c in params["decoder"]["deconvs"]],
+        },
+        "reward": mlp(params["reward"]),
+    }
+
+
+def convert_planet_state(state: Mapping[str, Any], device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """JAX ``PlaNetModel`` state (numpy leaves) → the port's state, with its
+    tracked posterior; the optimizer state is not carried over."""
+    dev = resolve_device(device)
+    return {
+        "params": convert_planet_params(state["params"], dev),
+        "normalizer": None,
+        "posterior": {k: _tensor(state["posterior"][k], dev) for k in ("latent", "belief")},
+    }

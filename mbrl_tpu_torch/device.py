@@ -6,10 +6,14 @@ they drive small host-side draws (seed words, permutations, populations), whose
 results are then moved to the compute device. The CUDA kernels draw their
 Gaussian noise from an in-kernel counter-based Philox keyed on seed words drawn
 here, so no device-side generator state is needed.
+
+:func:`full_float32` pins float32 products to full precision for a block: on
+an H100 cuDNN convolutions default to TF32.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+import contextlib
+from typing import Iterator, List, Sequence, Union
 
 import torch
 
@@ -62,3 +66,20 @@ def seed_words(generator: torch.Generator, n: int = 2) -> List[int]:
     """``n`` independent 32-bit seed words as Python ints in ``[0, 2**32)``."""
     words = torch.randint(0, 2**32, (n,), generator=generator, device=generator.device)
     return [int(w) for w in words.tolist()]
+
+
+@contextlib.contextmanager
+def full_float32() -> Iterator[None]:
+    """Float32 convolutions (cuDNN) and matmuls (cuBLAS) in full float32, not
+    TF32, inside the block; the caller's settings come back after it, also on
+    an exception. Process-wide flags: a backward pass that should be full
+    float32 too runs inside the block."""
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    matmul = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.set_float32_matmul_precision(matmul)

@@ -17,10 +17,15 @@ PyTorch is eager and its tensors are mutable, which shapes three things here:
 
 ``train`` takes host iterators (re-stacked every epoch); ``train_device`` keeps
 the dataset on the device (``util.device_buffer.DeviceTransitionDataset``) and
-draws the split, the bootstrap and the batch order there.
+draws the split, the bootstrap and the batch order there;
+``train_device_sequences`` (PlaNet) draws trajectory windows from such a
+dataset of uint8 pixels. A model with ``stochastic_loss`` gets the call's
+generator in ``loss``; a model with a ``precision()`` context (PlaNet's full
+float32) has its losses and their backward passes run inside it.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -159,6 +164,13 @@ class ModelTrainer:
                 color="blue",
             )
         self._train_iteration = 0
+        self._stochastic_loss = getattr(model, "stochastic_loss", False)
+        self._precision = getattr(model, "precision", contextlib.nullcontext)
+
+    def _loss(self, work: _Work, batch: TransitionBatch, generator: torch.Generator):
+        if self._stochastic_loss:
+            return self.model.loss(work.state(), batch, generator=generator)
+        return self.model.loss(work.state(), batch)
 
     # ------------------------------------------------------------------ #
     def _scores(self, state, batch: TransitionBatch) -> torch.Tensor:
@@ -191,12 +203,16 @@ class ModelTrainer:
         epoch_callback: Optional[Callable] = None,
         batch_callback: Optional[Callable] = None,
         evaluate: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[Dict[str, Any], List[float], List[float]]:
         """Train until num_epochs or patience epochs without >threshold improvement
         in ANY ensemble member's validation score.
 
         ``dataset_train`` may be an iterator (re-stacked each epoch to honor
         shuffling/bootstrap) or an already-stacked TransitionBatch.
+        ``batch_callback(epoch, loss, meta, "train")`` gets each step's loss
+        meta with its pre-clip ``grad_norm``. ``generator`` feeds a stochastic
+        loss (default: seeded by the call's index).
         Returns (updated wrapper state with best params + elites, train losses,
         val scores).
         """
@@ -205,6 +221,8 @@ class ModelTrainer:
         update_from_iterator = isinstance(dataset_train, TransitionIterator)
         eval_iterator = dataset_val if dataset_val is not None else dataset_train
         dev = self.model.device
+        if generator is None:
+            generator = torch.Generator().manual_seed(self._train_iteration)
 
         work = _Work(self, state)
         # validation data: one stacked device batch (un-bootstrapped)
@@ -223,22 +241,20 @@ class ModelTrainer:
                 break
             stacked = stack_iterator(dataset_train) if update_from_iterator else dataset_train
             stacked = self._pad_epoch(stacked).to(dev)
-            losses, norms = [], []
+            losses, metas = [], []
             for i in range(len(stacked)):
-                loss, _ = self.model.loss(work.state(), stacked[i])
-                norm = work.step(loss, want_norm=batch_callback is not None)
+                with self._precision():
+                    loss, meta = self._loss(work, stacked[i], generator)
+                    norm = work.step(loss, want_norm=batch_callback is not None)
                 losses.append(loss.detach())
-                norms.append(norm)
+                metas.append({**_detached(meta), "grad_norm": norm})
             batch_losses = torch.stack(losses).cpu().numpy()  # the epoch's one read-back
             train_loss = float(batch_losses.mean())
             _require_finite("train loss", train_loss, f"epoch {epoch}")
             training_losses.append(train_loss)
             if batch_callback is not None:
-                host_norms = torch.stack(norms).cpu().numpy()
-                for i in range(len(batch_losses)):
-                    batch_callback(
-                        epoch, float(batch_losses[i]), {"grad_norm": float(host_norms[i])}, "train"
-                    )
+                for i, meta in enumerate(_host_metas(metas)):
+                    batch_callback(epoch, float(batch_losses[i]), meta, "train")
 
             if not evaluate:
                 epoch += 1
@@ -476,6 +492,84 @@ class ModelTrainer:
                 )
         self._train_iteration += 1
         return new_state, losses, [float(v.mean()) for v in vals]
+
+    # ------------------------------------------------------------------ #
+    # Device-resident SEQUENCE training (PlaNet)
+    # ------------------------------------------------------------------ #
+    # Windows of `seq_len` rows are gathered on the device from a uint8 pixel
+    # dataset each step, so only the dataset (1 byte a texel) and one batch's
+    # float pixels are live; the host route stacks every batch of the call.
+
+    def train_device_sequences(
+        self,
+        state: Dict[str, Any],
+        dataset,  # util.device_buffer.DeviceTransitionDataset
+        valid_starts: np.ndarray,
+        *,
+        num_updates: int,
+        batch_size: int,
+        seq_len: int,
+        generator: Optional[torch.Generator] = None,
+        batch_callback: Optional[Callable] = None,
+    ) -> Tuple[Dict[str, Any], List[float]]:
+        """``num_updates`` gradient steps, each on ``batch_size`` windows whose
+        starts are drawn uniformly from ``valid_starts`` (row ids of the
+        dataset); one read-back at the end. ``batch_callback(0, loss, meta,
+        "train")`` gets each step's loss meta with its pre-clip ``grad_norm``.
+        Returns the new state (params and optimizer state) and the losses."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self._train_iteration)
+        n_starts = int(len(valid_starts))
+        if n_starts == 0:
+            raise ValueError(f"no trajectory holds a window of {seq_len} rows")
+        dev = dataset.device
+        starts = torch.as_tensor(np.asarray(valid_starts), dtype=torch.int64, device=dev)
+        offsets = torch.arange(seq_len, device=dev)
+        work = _Work(self, state)
+        losses, metas = [], []
+        with self._precision():
+            for _ in range(num_updates):
+                pos = randint(generator, 0, n_starts, (batch_size,), dev)
+                batch = dataset.data[starts[pos][:, None] + offsets[None, :]]  # (B, L, ...)
+                loss, meta = self._loss(work, batch, generator)
+                norm = work.step(loss, want_norm=True)
+                losses.append(loss.detach())
+                metas.append({**_detached(meta), "grad_norm": norm})
+        host_losses = torch.stack(losses).cpu().numpy()
+        _require_finite("train loss", host_losses, "train_device_sequences")
+        if batch_callback is not None:
+            for i, meta in enumerate(_host_metas(metas)):
+                batch_callback(0, float(host_losses[i]), meta, "train")
+        if self.logger is not None:
+            self.logger.log_data(
+                self._LOG_GROUP_NAME,
+                {
+                    "train_iteration": self._train_iteration,
+                    "epoch": 0,
+                    "train_dataset_size": n_starts,
+                    "val_dataset_size": 0,
+                    "model_loss": float(host_losses.mean()),
+                    "model_val_score": float(host_losses[-1]),
+                    "model_best_val_score": float(host_losses.min()),
+                },
+            )
+        self._train_iteration += 1
+        new_state = {**state, "params": work.params_with(work.leaves),
+                     "opt_state": work.opt_state()}
+        return new_state, [float(v) for v in host_losses]
+
+
+def _detached(meta: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v.detach() for k, v in meta.items()}
+
+
+def _host_metas(metas: List[Dict[str, Any]]) -> List[Dict[str, float]]:
+    """Per-step meta dicts of 0-d tensors as floats, in one device read."""
+    if not metas:
+        return []
+    keys = list(metas[0])
+    host = torch.stack([torch.stack([m[k].float() for k in keys]) for m in metas])
+    return [dict(zip(keys, map(float, row))) for row in host.cpu().numpy()]
 
 
 def _bucket_rows(n: int, floor: int = 256, growth: float = 1.25) -> int:

@@ -2,7 +2,7 @@
 
 Truncated-normal sampling is one-shot inverse-CDF on ±2σ, as
 ``jax.random.truncated_normal`` does; every draw takes an explicit
-``torch.Generator``. ``quantize_obs`` (pixels) comes with the PlaNet slice.
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -182,3 +182,24 @@ def powerlaw_psd_gaussian(
     return _powerlaw_from_normals(
         randn(generator, shape, device), randn(generator, shape, device), exponent, samples, fmin
     )
+
+
+# ------------------------------------------------------------------------ #
+# Pixel manipulation (PlaNet)
+# ------------------------------------------------------------------------ #
+def quantize_obs(
+    obs: torch.Tensor,
+    bit_depth: int,
+    generator: Optional[torch.Generator] = None,
+    original_bit_depth: int = 8,
+    add_noise: bool = False,
+) -> torch.Tensor:
+    """Reduce pixel bit depth; optionally dither with uniform noise in
+    ``[0, ratio)`` drawn from ``generator`` (a float32 result then)."""
+    ratio = 2 ** (original_bit_depth - bit_depth)
+    quantized = (obs // ratio) * ratio
+    if add_noise:
+        if generator is None:
+            raise ValueError("quantize_obs(add_noise=True) requires a generator")
+        quantized = quantized.to(torch.float32) + ratio * rand(generator, obs.shape, obs.device)
+    return quantized

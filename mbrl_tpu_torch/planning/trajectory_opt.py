@@ -341,7 +341,12 @@ class TrajectoryOptimizer:
         self.replan_freq = replan_freq
         self.keep_last_solution = keep_last_solution
         mid = (np.asarray(action_lb, np.float32) + np.asarray(action_ub, np.float32)) / 2
-        device = getattr(optimizer, "device", torch.device("cpu"))
+        device = getattr(optimizer, "device", None)
+        if device is None:
+            raise ValueError(
+                f"{type(optimizer).__name__} has no `device`: the trajectory optimizer keeps "
+                "its solutions on the optimizer's device and never picks one itself"
+            )
         self.initial_solution = torch.as_tensor(mid, device=device).reshape(1, -1).repeat(
             planning_horizon, 1
         )

@@ -7,9 +7,12 @@ as ``gymnasium.wrappers.TimeLimit`` does there).
 Names resolve in the reference's order: a custom name, then
 ``overrides.env_cfg``, then the ``gym___``, ``pybulletgym___`` and
 ``dmcontrol___`` prefixes, then an environment registered in
-:mod:`mbrl_tpu_torch.envs`. The port builds only the environments it has; a
-MuJoCo environment or a prefixed name raises ``NotImplementedError`` naming the
-package it needs. The freeze/state handlers come with those environments.
+:mod:`mbrl_tpu_torch.envs`. The port builds only the environments it has: a
+``dmcontrol___<domain>--<task>`` name builds
+:class:`~mbrl_tpu_torch.util.dmcontrol_wrapper.DmControlEnv` (``dm_control``
+is imported then); a MuJoCo environment or a ``gym___`` or ``pybulletgym___``
+name raises ``NotImplementedError`` naming the package it needs. The
+freeze/state handlers come with those environments.
 """
 from __future__ import annotations
 
@@ -54,8 +57,16 @@ def make_env_from_name(cfg, env_name: str):
         raise NotImplementedError(f"environment {env_name!r} needs `pybullet` and `pybulletgym`, "
                                   "which the port does not use yet")
     if env_name.startswith("dmcontrol___"):
-        raise NotImplementedError(f"environment {env_name!r} needs `dm_control`, which the port "
-                                  "does not use yet")
+        from mbrl_tpu_torch.util.dmcontrol_wrapper import DmControlEnv
+
+        domain, task = env_name.split("___")[1].split("--")
+        return DmControlEnv(
+            domain,
+            task,
+            from_pixels=cfg.overrides.get("from_pixels", False),
+            frame_skip=cfg.overrides.get("frame_skip", 1),
+            bit_depth=cfg.overrides.get("bit_depth", 8),
+        )
     # an environment registered in the envs package (the reference's hasattr
     # fallback); by membership, since a MuJoCo name raises NotImplementedError
     # there, which hasattr would pass on

@@ -24,6 +24,7 @@ JAX_CONF = REPO / "mbrl_tpu" / "examples" / "conf"
 
 PETS_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("pets_*.yaml"))
 MBPO_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("*mbpo_*.yaml"))
+PLANET_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("planet_*.yaml"))
 MODELS = ["gaussian_mlp", "gaussian_mlp_ensemble", "gaussian_mlp_ensemble_fast",
           "gaussian_mlp_ensemble_pallas"]
 
@@ -62,6 +63,66 @@ def test_every_mbpo_override_resolves_as_in_the_jax_tree(overrides):
     assert got == want
     assert got["algorithm"]["name"] == "mbpo" and got["algorithm"]["freq_train_model"] == \
         got["overrides"]["freq_train_model"]
+
+
+@pytest.mark.parametrize("overrides", PLANET_OVERRIDES)
+def test_every_planet_override_resolves_as_in_the_jax_tree(overrides):
+    args = ["algorithm=planet", "dynamics_model=planet", f"overrides={overrides}"]
+    got = to_dict(load_config(CONF, "main", overrides=args))
+    want = _repointed(jax_to_dict(jax_load_config(JAX_CONF, "main", overrides=args)))
+    assert got == want
+    assert got["overrides"]["env_cfg"]["_target_"] == "mbrl_tpu_torch.util.dmcontrol_wrapper.make"
+    assert got["dynamics_model"]["_target_"] == "mbrl_tpu_torch.models.PlaNetModel"
+
+
+def test_planet_yaml_files_differ_from_the_jax_ones_only_in_their_targets():
+    files = ([pathlib.Path("algorithm/planet.yaml"), pathlib.Path("dynamics_model/planet.yaml")]
+             + [pathlib.Path("overrides") / f"{n}.yaml" for n in PLANET_OVERRIDES])
+    assert len(files) == 8
+    for rel in files:
+        assert (CONF / rel).read_text() == \
+            (JAX_CONF / rel).read_text().replace("mbrl_tpu.", "mbrl_tpu_torch."), rel
+
+
+def test_planet_dynamics_model_instantiates_at_its_published_width():
+    cfg = load_config(CONF, "main", overrides=["algorithm=planet", "dynamics_model=planet",
+                                               "overrides=planet_cheetah_run"])
+    cfg.dynamics_model["action_size"] = 6
+    model = instantiate(cfg.dynamics_model, device="cpu")
+    assert type(model).__name__ == "PlaNetModel" and model.encoder.identity_head
+    assert (model.belief_size, model.latent_state_size, model.free_nats) == (200, 30, 3)
+    state = model.init(torch.Generator().manual_seed(0))
+    assert state["params"]["belief_gru"]["w_ih"].shape == (200, 600)
+    assert state["params"]["decoder"]["deconvs"][0]["w"].shape == (1024, 128, 5, 5)
+
+
+def test_chip_smoke_config_pn_is_the_loaded_tree_with_its_cuts():
+    sys.path.insert(0, str(REPO))
+    try:
+        chip_smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(REPO))
+    loaded = to_dict(load_config(CONF, "main", overrides=[
+        "algorithm=planet", "dynamics_model=planet", "overrides=planet_cheetah_run"]))
+    algo = loaded["algorithm"]
+    assert {k: algo[k] for k in ("num_episodes", "dataset_size")} == chip_smoke.PN_PUBLISHED \
+        == {"num_episodes": 1000, "dataset_size": 1_000_000}
+    algo["num_episodes"] = chip_smoke.PN_EPISODES
+    algo["dataset_size"] = chip_smoke.PN_DATASET_SIZE
+    assert chip_smoke.CONFIG_PN == loaded
+    # the cut buffer holds every row of the cut run; its episodes are one
+    # test episode (no exploration noise) and one with noise
+    trial = loaded["overrides"]["trial_length"]
+    assert (algo["num_initial_trajectories"] + chip_smoke.PN_EPISODES) * trial \
+        <= chip_smoke.PN_DATASET_SIZE
+    assert chip_smoke.PN_EPISODES == 2 and algo["test_frequency"] > 1
+    env = chip_smoke.PixelCheetah()
+    obs, _ = env.reset()
+    assert obs.shape == tuple(loaded["dynamics_model"]["obs_shape"]) and obs.dtype == np.uint8
+    assert env.action_space.shape == (chip_smoke.ACT_PN,)
+    nxt, reward, terminated, truncated, _ = env.step(np.ones(chip_smoke.ACT_PN, np.float32))
+    assert not (nxt == obs).all() and np.isfinite(reward) and not (terminated or truncated)
+    assert (obs % 2 ** (8 - loaded["overrides"]["env_cfg"]["bit_depth"]) == 0).all()
 
 
 @pytest.mark.parametrize("model", MODELS)
@@ -155,7 +216,7 @@ def test_config_engine_basics():
     with pytest.raises(ValueError):
         parse_overrides(["novalue"])
     with pytest.raises(FileNotFoundError):
-        load_config(CONF, "main", overrides=["overrides=planet_cheetah_run"])  # not part of the port
+        load_config(CONF, "main", overrides=["overrides=no_such_override"])  # no such file
     cfg = load_config(CONF, "main", overrides=["overrides.model_lr=0.001", "seed=3"])
     assert cfg.overrides.model_lr == 1e-3 and cfg.seed == 3 and cfg.overrides.model_wd == 3e-5
     import pickle

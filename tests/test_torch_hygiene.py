@@ -71,12 +71,14 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
     (and JAX and the JAX package) made unimportable, everything chip_smoke.py
     imports still imports, a ``Config`` is built from its dict, and the model,
     the agent and the cartpole of config E are made from it, and config M's
-    capped cartpole and a SAC learner."""
+    capped cartpole and a SAC learner, and config PN's PlaNet model and pixel
+    stand-in (with ``dm_control`` unimportable too)."""
     mods = _chip_smoke_imports()
     assert "mbrl_tpu_torch.algorithms.pets" in mods or "mbrl_tpu_torch.algorithms" in mods
     code = (
         "import sys, importlib, importlib.abc\n"
-        "BLOCKED = ('gymnasium', 'gym', 'yaml', 'jax', 'jaxlib', 'flax', 'optax', 'mbrl_tpu')\n"
+        "BLOCKED = ('gymnasium', 'gym', 'yaml', 'jax', 'jaxlib', 'flax', 'optax', 'mbrl_tpu',\n"
+        "           'dm_control')\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"
@@ -108,6 +110,12 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
         "sac = SAC(4, env_m.action_space, hidden_size=8, device='cpu')\n"
         "sac.init(torch.Generator().manual_seed(0))\n"
         "env_m.reset(seed=0); env_m.step(env_m.action_space.sample())\n"
+        "cfg_pn = Config(copy.deepcopy(chip_smoke.CONFIG_PN))\n"
+        "env_pn = chip_smoke.PixelCheetah()\n"
+        "cfg_pn.dynamics_model['action_size'] = env_pn.action_space.shape[0]\n"
+        "planet = instantiate(cfg_pn.dynamics_model, device='cpu')\n"
+        "planet.update_posterior(planet.init(torch.Generator().manual_seed(0)), env_pn.reset()[0])\n"
+        "env_pn.step(env_pn.action_space.sample())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "print(count, len(model), type(agent).__name__); print(bad)\n"
     )
@@ -129,6 +137,39 @@ def test_yaml_is_imported_only_where_yaml_text_is_parsed():
                 [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
             for name in names:
                 assert name.split(".")[0] not in ("yaml", "gymnasium", "optax"), (path, name)
+
+
+def test_dm_control_is_imported_only_when_an_environment_is_made():
+    """``util/dmcontrol_wrapper.py`` and ``util/env.py`` import ``dm_control``
+    inside functions only: importing the port (and chip_smoke.py) loads none
+    of it."""
+    for path in PORT_FILES:
+        for node in ast.parse(path.read_text()).body:
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            assert not any(n.split(".")[0] == "dm_control" for n in names), path
+    code = (
+        "import sys\n"
+        "import mbrl_tpu_torch.util.dmcontrol_wrapper, mbrl_tpu_torch.util.env\n"
+        "import mbrl_tpu_torch.algorithms.planet, chip_smoke\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('dm_control', 'mujoco')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_planet_model_and_conv_nets_default_to_the_card():
+    from mbrl_tpu_torch.models import Conv2dDecoder, Conv2dEncoder, PlaNetModel
+
+    _skip_on_a_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Conv2dEncoder([(3, 8, 4, 2)], (16, 16), 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Conv2dDecoder(8, (8, 1, 1), [(8, 3, 4, 2)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        PlaNetModel((3, 16, 16), 8, [(3, 8, 4, 2)], [(8, 1, 1), [(8, 3, 4, 2)]], 2, 1, 4, 8)
 
 
 def _skip_on_a_card():

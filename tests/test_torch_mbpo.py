@@ -151,8 +151,19 @@ def test_evaluate_ends_at_the_time_limit():
                                           ("dmcontrol___cheetah--run", "dm_control"),
                                           ("pybulletgym___InvertedPendulumMuJoCoEnv-v0", "pybullet")])
 def test_make_env_names_the_missing_package(name, package):
+    """A name whose package the port does not use raises naming it; dm_control
+    is used now: its name builds the port's DmControlEnv (capped at the
+    trial length), with dm_control imported only then."""
     cfg = load_config(_CONF_DIR, "main", overrides=["algorithm=mbpo", "overrides=mbpo_cartpole"])
     cfg.overrides["env"] = name
+    if package == "dm_control":
+        pytest.importorskip("dm_control")
+        from mbrl_tpu_torch.util.dmcontrol_wrapper import DmControlEnv
+
+        env, _, _ = make_env(cfg)
+        assert isinstance(env.env, DmControlEnv) and env._max_episode_steps == 200
+        assert env.observation_space.shape == (17,) and env.action_space.shape == (6,)
+        return
     with pytest.raises(NotImplementedError, match=package):
         make_env(cfg)
 

@@ -106,6 +106,21 @@ def test_trajectory_optimizer_warm_start():
     np.testing.assert_allclose(topt.previous_solution.numpy(), 0.0)
 
 
+def test_trajectory_optimizer_takes_the_optimizers_device_and_never_picks_one():
+    """An optimizer without a ``device`` raises: the warm start does not land
+    on the CPU quietly."""
+
+    class NoDevice:
+        def init_state(self):
+            return None
+
+    with pytest.raises(ValueError, match="device"):
+        TrajectoryOptimizer(NoDevice(), np.array([-1.0]), np.array([1.0]), planning_horizon=3)
+    cem = CEMOptimizer(2, 0.1, 10, [[-1.0]] * 3, [[1.0]] * 3, alpha=0.1, device="cpu")
+    topt = TrajectoryOptimizer(cem, np.array([-1.0]), np.array([1.0]), planning_horizon=3)
+    assert topt.initial_solution.device == cem.device == torch.device("cpu")
+
+
 def _agent(horizon=4, replan_freq=2, lb=-1.0, ub=1.0):
     cem = CEMOptimizer(4, 0.1, 60, [[lb]] * horizon, [[ub]] * horizon, alpha=0.1, device="cpu")
     return TrajectoryOptimizerAgent(cem, action_lb=[lb], action_ub=[ub],
