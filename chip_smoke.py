@@ -67,6 +67,19 @@ with random weights from a seed:
      (a test episode, then one with exploration noise) and ``dataset_size``
      1,000,000 -> 2,000. No K1-K3 launch; then the eval_score, the loss with
      fixed normals and its gradient on the card against the CPU, full float32
+  CL  the closed-loop MPC driver (``planning.ClosedLoopDriver``), 20 steps each
+     of CL-A (config A's model and planner: K1 once per CEM generation) and
+     CL-B (config B's: K2 every planning step), both acting in the model they
+     plan in (K3 at one row per elite every step); then its per-step times,
+     the card's busy share of a run, the driver against a hand-written loop
+     of ``optimize`` and ``ModelEnv.step`` from equal seeds, the agent's
+     ``act`` at the same config, and CEM, iCEM and MPPI driving a toy
+     integrator to its optimum
+  BE  ``algorithms.pets.train`` with ``dynamics_model/basic_ensemble.yaml`` (5
+     one-member GaussianMLPs of 4x200 silu, ``fixed_model``) on the port's
+     cartpole at ``pets_cartpole``'s values, ``num_steps`` cut to
+     ``E_PLANNED_STEPS``: no K1-K3 launch; then the trained ensemble's forward,
+     propagation, loss and gradient on the card against the CPU
 
 and checks that each config's launches went through its kernel, that the
 rollout on the card agrees with the plain CPU path on an identical-member
@@ -379,6 +392,8 @@ def kernel_checks():
         x = torch.randn((ELITES, shard, OBS_B + ACT), generator=g).to(dev)
 
         results[("K3", dt_name)] = check_k3(K, x, stack, dt_name, "C8k")
+        # K3 at config CL-B's act-env step: one row per elite
+        results[("K3@CL-B", dt_name)] = check_k3(K, x[:, :1].contiguous(), stack, dt_name, "CL-B")
         # K3 at config D's shape: the same rows into a deterministic head (18 columns)
         det, _, _ = elite_stack(OBS_B + ACT, OBS_B, dtype, g, deterministic=True)
         results[("K3@D", dt_name)] = check_k3(K, x, det, dt_name, "D")
@@ -415,6 +430,9 @@ def kernel_checks():
         x = torch.randn((ELITES, MBPO_ROWS // ELITES, OBS_A + ACT), generator=g).to(dev)
         results[("K3@C100k", dt_name)] = check_k3(K, x, stack, dt_name, "C100k")
         del x
+        # K3 at config CL-A's act-env step: one row per elite of A's model
+        x = torch.randn((ELITES, 1, OBS_A + ACT), generator=g).to(dev)
+        results[("K3@CL-A", dt_name)] = check_k3(K, x, stack, dt_name, "CL-A")
         results[("K1", dt_name)] = check_k1(K, g, stack, max_lv, min_lv, dt_name, "A")
         print(f"kernels {dt_name}: " + json.dumps(
             {k[0]: results[k] for k in results if k[1] == dt_name}), flush=True)
@@ -824,20 +842,22 @@ def read_csv(path) -> dict:
     return {k: [float(r[k]) for r in rows] for k in rows[0]}
 
 
-def pets_config_e(device: str = "cuda", planned_steps: int = E_PLANNED_STEPS, config=None):
-    """``pets.train`` on the port's continuous cartpole with ``CONFIG_E``.
-    Returns the run's numbers, the model it trained (its wrapper, and the state
-    loaded from the ``model.pkl`` it wrote) and its work directory (the caller
+def pets_config_e(device: str = "cuda", planned_steps: int = E_PLANNED_STEPS, config=None,
+                  label: str = "E"):
+    """``pets.train`` on the port's continuous cartpole with ``CONFIG_E`` (or
+    ``config``, e.g. ``CONFIG_BE``; ``label`` names it in messages). Returns
+    the run's numbers, the model it trained (its wrapper, and the state loaded
+    from the ``model.pkl`` it wrote) and its work directory (the caller
     removes it)."""
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_pets_")
     try:
-        return _pets_config_e(device, planned_steps, config, work_dir)
+        return _pets_config_e(device, planned_steps, config, work_dir, label)
     except BaseException:
         shutil.rmtree(work_dir, ignore_errors=True)
         raise
 
 
-def _pets_config_e(device, asked, config, work_dir):
+def _pets_config_e(device, asked, config, work_dir, label="E"):
     import contextlib
     import io
     from unittest import mock
@@ -873,18 +893,20 @@ def _pets_config_e(device, asked, config, work_dir):
     planned_steps = len(env.actions) - explore
     retrainings = -(-planned_steps // freq)
     check(asked <= planned_steps < asked + cfg.overrides.trial_length,
-          f"config E: {planned_steps} planned steps for num_steps {asked}")
+          f"config {label}: {planned_steps} planned steps for num_steps {asked}")
     actions = np.stack(env.actions[explore:])
     check(actions.shape == (planned_steps, ACT_E) and bool(np.isfinite(actions).all())
-          and bool((np.abs(actions) <= 1.0 + 1e-6).all()), "config E: action not finite or out of bounds")
-    # one fresh pack per retraining, made at the first plan after it
-    check(wrapper.model.packs == retrainings,
-          f"config E: weights packed {wrapper.model.packs} times for {retrainings} retrainings")
+          and bool((np.abs(actions) <= 1.0 + 1e-6).all()), f"config {label}: action not finite or out of bounds")
+    # one fresh pack per retraining, made at the first plan after it (a
+    # BasicEnsemble packs nothing: it runs no kernel)
+    packs = getattr(wrapper.model, "packs", retrainings)
+    check(packs == retrainings,
+          f"config {label}: weights packed {packs} times for {retrainings} retrainings")
 
     # what the run wrote loads again
     work = pathlib.Path(work_dir)
     check((work / "model.pkl").exists() and (work / "replay_buffer.npz").exists(),
-          "config E: model.pkl or replay_buffer.npz not written")
+          f"config {label}: model.pkl or replay_buffer.npz not written")
     # the buffer's capacity is overrides.num_steps, so the cut run's ring wraps
     buffer = ReplayBuffer(cfg.overrides.num_steps, (OBS_E,), (ACT_E,), obs_type=np.double,
                           action_type=np.double, reward_type=np.double)
@@ -901,10 +923,10 @@ def _pets_config_e(device, asked, config, work_dir):
     # the retrainings, from the model_train.csv the run's logger wrote
     log = read_csv(work / "model_train.csv")
     check(bool(np.isfinite(log["model_loss"]).all() and np.isfinite(log["model_val_score"]).all()),
-          "config E: non-finite training loss or validation score")
+          f"config {label}: non-finite training loss or validation score")
     iteration = np.asarray(log["train_iteration"], int)
     check(sorted(set(iteration)) == list(range(retrainings)),
-          f"config E: retrainings logged {sorted(set(iteration))}, expected {retrainings}")
+          f"config {label}: retrainings logged {sorted(set(iteration))}, expected {retrainings}")
     losses = [np.asarray(log["model_loss"])[iteration == i] for i in range(retrainings)]
     scores = [np.asarray(log["model_val_score"])[iteration == i] for i in range(retrainings)]
     epochs = len(iteration)
@@ -915,7 +937,7 @@ def _pets_config_e(device, asked, config, work_dir):
     with torch.no_grad():
         score_init = float(wrapper.eval_score({**init, "normalizer": state["normalizer"]}, rows)[0].mean())
         score_last = float(wrapper.eval_score(state, rows)[0].mean())
-    check(score_last < score_init, f"config E: the saved model's score {score_last} on the buffer "
+    check(score_last < score_init, f"config {label}: the saved model's score {score_last} on the buffer "
                                    f"is not below the initial weights' {score_init}")
 
     # a step that retrains waits for the retraining (normalizer, sync, epochs,
@@ -1951,6 +1973,246 @@ def planet_card_vs_cpu():
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Config CL: the closed-loop MPC driver at full width
+# --------------------------------------------------------------------------- #
+CL_STEPS = 20
+
+
+class StepClock:
+    """A ModelEnv whose ``step`` waits for the card and records the host time
+    at which it returned: given to ``ClosedLoopDriver`` as its act env, the
+    gaps are the closed loop's steps (a plan, then a model step)."""
+
+    def __init__(self, env):
+        self.env = env
+        self.dynamics_model = env.dynamics_model
+        self.stamps = []
+
+    def reset(self, *a, **kw):
+        out = self.env.reset(*a, **kw)
+        torch.cuda.synchronize()
+        self.stamps = [time.perf_counter()]
+        return out
+
+    def step(self, *a, **kw):
+        out = self.env.step(*a, **kw)
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        return out
+
+
+def closed_loop_setup(name: str, device: str = "cuda", hid: int = HID):
+    """Config A's or B's model and planner (CEM 5 x ``POP`` x ``PARTICLES``
+    particles x ``HORIZON``, elite ratio 0.16, alpha 0.12, mean of the elites)
+    in a ``ClosedLoopDriver`` that plans and acts in that model; the first
+    observation, seeded."""
+    from mbrl_tpu_torch.planning import CEMOptimizer, ClosedLoopDriver
+
+    env, state, obs_dim = build_config(name, device, torch.Generator().manual_seed(SEED + 30),
+                                       hid=hid)
+    bounds = np.tile(-np.ones(ACT, np.float32), (HORIZON, 1)), np.tile(np.ones(ACT, np.float32),
+                                                                       (HORIZON, 1))
+    cem = CEMOptimizer(5, 0.16, POP, *bounds, alpha=0.12, return_mean_elites=True, device=device)
+    obs0 = (0.1 * np.random.default_rng(SEED + 31).standard_normal(obs_dim)).astype(np.float32)
+    return ClosedLoopDriver(env, cem, HORIZON, ACT, PARTICLES), env, state, obs0
+
+
+def hand_loop(driver, state, obs0, generator, steps: int):
+    """The closed loop of ``driver`` written out with its optimizer's
+    ``optimize`` and its model environment's ``ModelEnv.step``: shift the
+    solution, plan, step row 0's action on rows padded to the elite count."""
+    opt, env = driver.optimizer, driver.plan_env
+    horizon, act_dim = driver.horizon, driver.act_dim
+    rows = int(state["params"]["elite"].shape[0])
+    obs_rows = torch.as_tensor(obs0, device=opt.device).expand(rows, -1).contiguous()
+    env_state = env.reset(state, obs_rows, generator)
+    solution = torch.zeros((horizon, act_dim), device=opt.device)
+    opt_state, out = opt.init_state(), []
+
+    def objective(population, st, o, g):
+        return env.evaluate_action_sequences(st, population, o, g,
+                                             num_particles=driver.num_particles)
+
+    for _ in range(steps):
+        x0 = torch.cat([solution[1:], torch.zeros((1, act_dim), device=opt.device)])
+        solution, opt_state = opt.optimize(objective, x0, generator, opt_state,
+                                           obj_args=(state, obs_rows[0], generator))
+        next_obs, reward, term, env_state = env.step(state, solution[0].expand(rows, act_dim),
+                                                     env_state, generator,
+                                                     sample=driver.sample_env_step)
+        out.append((obs_rows[0], solution[0], reward.reshape(-1)[0], term.reshape(-1)[0]))
+        obs_rows = next_obs
+    return [torch.stack(x) for x in zip(*out)]
+
+
+def closed_loop_config(name: str, device: str = "cuda", steps: int = CL_STEPS):
+    """``steps`` closed-loop MPC steps of config A or B (the counted run): ms a
+    step, actions finite and in bounds."""
+    driver, env, state, obs0 = closed_loop_setup(name, device)
+    sync(device)
+    t0 = time.perf_counter()
+    obs, actions, rewards, terms = driver.run(state, obs0, torch.Generator().manual_seed(SEED + 32),
+                                              steps)
+    sync(device)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(obs.shape) == (steps, len(obs0)) and tuple(actions.shape) == (steps, ACT)
+          and tuple(rewards.shape) == (steps,) and tuple(terms.shape) == (steps,),
+          f"config CL-{name}: bad shapes {obs.shape} {actions.shape} {rewards.shape}")
+    check(bool(torch.isfinite(actions).all() and (actions.abs() <= 1 + 1e-6).all()
+               and torch.isfinite(obs).all() and torch.isfinite(rewards).all()),
+          f"config CL-{name}: actions not finite or out of bounds, or non-finite observations")
+    check(float((obs[0].cpu() - torch.as_tensor(obs0)).abs().max()) == 0.0,
+          f"config CL-{name}: the trajectory does not start at obs0")
+    return {"steps": steps, "run_ms": total_ms, "ms_per_step_mean": total_ms / steps,
+            "rewards": rewards.cpu().tolist()}
+
+
+def closed_loop_checks(name: str, steps: int = CL_STEPS):
+    """Config A or B's closed loop beside the counted run: per-step times (each
+    step waited for), the card's busy share of a run under the profiler, the
+    driver against the hand-written loop from equal seeds, and the agent's
+    ``act`` at the same config."""
+    driver, env, state, obs0 = closed_loop_setup(name)
+    clock = StepClock(env)
+    driver.act_env = clock
+    driver.run(state, obs0, torch.Generator().manual_seed(SEED + 33), steps)
+    step_ms = np.diff(clock.stamps) * 1e3
+    driver.act_env = env
+    busy = profile_busy(lambda: driver.run(state, obs0, torch.Generator().manual_seed(SEED + 34),
+                                           steps), PORT_KERNELS)
+    got = driver.run(state, obs0, torch.Generator().manual_seed(SEED + 35), steps)
+    want = hand_loop(driver, state, obs0, torch.Generator().manual_seed(SEED + 35), steps)
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    check(err <= 1e-6, f"config CL-{name}: the driver differs from the hand-written loop by {err}")
+    act_ms = plan_config(name, acts=4)[1:]
+    return {"step_ms_median": float(np.median(step_ms)), "step_ms_p90": float(np.percentile(step_ms, 90)),
+            "step_ms": step_ms.tolist(), "driver_vs_hand_loop_max_abs_err": err,
+            "agent_act_ms": act_ms, "agent_act_ms_median": float(np.median(act_ms)),
+            "profile": busy}
+
+
+class ToyIntegrator:
+    """tests/test_closed_loop.py's toy system on the card: s' = s + 0.2 a,
+    reward -(s' - 1)^2, optimum s = 1."""
+
+    class _Model:
+        model = None
+
+    dynamics_model = _Model()
+
+    def reset(self, state, obs_rows, generator):
+        return {"s": obs_rows}
+
+    def step(self, state, action, env_state, generator, sample=True):
+        s = env_state["s"] + 0.2 * action
+        r = -torch.square(s - 1.0).sum(dim=-1, keepdim=True)
+        return s, r, torch.zeros_like(r, dtype=torch.bool), {"s": s}
+
+    def evaluate_action_sequences(self, state, population, obs, generator, num_particles=1):
+        s = obs.expand(population.shape[0], -1)
+        total = torch.zeros(population.shape[0], device=population.device)
+        for t in range(population.shape[1]):
+            s = s + 0.2 * population[:, t]
+            total = total - torch.square(s - 1.0).sum(dim=-1)
+        return total
+
+
+def closed_loop_integrator(device: str = "cuda", horizon: int = 5, steps: int = 25):
+    """CEM, iCEM and MPPI each drive the toy integrator to its optimum."""
+    from mbrl_tpu_torch.planning import (
+        CEMOptimizer, ClosedLoopDriver, ICEMOptimizer, MPPIOptimizer,
+    )
+
+    bounds = dict(lower_bound=[[-1.0]] * horizon, upper_bound=[[1.0]] * horizon, device=device)
+    optimizers = {
+        "cem": CEMOptimizer(3, 0.2, 40, alpha=0.1, return_mean_elites=True, **bounds),
+        "icem": ICEMOptimizer(3, 0.2, 40, population_decay_factor=1.3, colored_noise_exponent=2.0,
+                              keep_elite_frac=0.5, alpha=0.1, **bounds),
+        "mppi": MPPIOptimizer(4, 50, gamma=1.0, sigma=0.5, beta=0.7, **bounds),
+    }
+    final = {}
+    for name, opt in optimizers.items():
+        driver = ClosedLoopDriver(ToyIntegrator(), opt, horizon=horizon, act_dim=1, num_particles=1)
+        obs, actions, _, _ = driver.run({"params": {}}, np.zeros(1, np.float32),
+                                        torch.Generator().manual_seed(SEED), steps)
+        final[name] = float(obs[-1, 0])
+        check(obs.device.type == device and final[name] > 0.7 and bool(torch.isfinite(actions).all()),
+              f"closed loop {name}: the integrator ends at {final[name]}, not near its optimum 1")
+    return final
+
+
+# --------------------------------------------------------------------------- #
+# Config BE: BasicEnsemble in the PETS loop
+# --------------------------------------------------------------------------- #
+# examples/conf/main.yaml with algorithm=pets, overrides=pets_cartpole,
+# dynamics_model=basic_ensemble, action_optimizer=cem, parallel=none,
+# interpolations resolved; tests/test_torch_config.py holds it equal to the
+# loaded YAML tree apart from overrides.num_steps
+CONFIG_BE = {
+    **copy.deepcopy(CONFIG_E),
+    "dynamics_model": {
+        "_target_": "mbrl_tpu_torch.models.BasicEnsemble",
+        "ensemble_size": 5, "propagation_method": "fixed_model",
+        "member_cfg": {
+            "_target_": "mbrl_tpu_torch.models.GaussianMLP",
+            "num_layers": 4, "in_size": "???", "out_size": "???", "ensemble_size": 1,
+            "hid_size": 200, "deterministic": False, "learn_logvar_bounds": False,
+            "activation": "silu",
+        },
+    },
+}
+# card vs CPU in full float32, relative to the largest magnitude: forward,
+# propagation, loss and the whole gradient; and each gradient leaf on its own
+BE_TOL, BE_LEAF_TOL = 1e-5, 1e-4
+
+
+def basic_ensemble_card_vs_cpu(wrapper, state, rows):
+    """The trained ensemble's forward (all members), ``fixed_model``
+    propagation, loss and gradient on the card against the CPU, on the
+    converted (copied) weights and the first ``rows``-row batch of its own
+    buffer, bootstrapped 5 x 64."""
+    from mbrl_tpu_torch.config import Config, create_one_dim_tr_model
+    from mbrl_tpu_torch.models.trainer import ModelTrainer, _Work
+    from mbrl_tpu_torch.ops.tree import tree_map
+
+    def on(device):
+        return tree_map(lambda t: t.detach().to(device) if isinstance(t, torch.Tensor) else t, state)
+
+    idx = np.random.default_rng(SEED + 36).integers(0, len(rows), (5, 64))
+    out = {}
+    for device in ("cuda", "cpu"):
+        w = create_one_dim_tr_model(Config(copy.deepcopy(CONFIG_BE)), (OBS_E,), (ACT_E,), device=device)
+        st = on(device)
+        batch = rows[idx.reshape(-1)].map(lambda x: x.reshape((5, 64) + x.shape[1:])).to(device)
+        model_in, _ = w.process_batch(st, rows[: 64].to(device))
+        with torch.no_grad():
+            mean, logvar = w.model.forward(st["params"], model_in)
+            prop = st["params"]["elite"].new_tensor(np.arange(64) % 5)
+            pm, _ = w.model.forward_propagated(st["params"], model_in, propagation_indices=prop)
+        work = _Work(ModelTrainer(w), st)
+        loss, _ = w.loss(work.state(), batch)
+        loss.backward()
+        out[device] = [mean.cpu(), logvar.cpu(), pm.cpu(), loss.detach().cpu()[None],
+                       *(leaf.grad.cpu() for leaf in work.leaves)]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    errs = [rel(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    # the gradient as one vector (every leaf), relative to its largest entry;
+    # each leaf against its own largest entry is held at 1e-4, as config T's is
+    grads = [torch.cat([g.reshape(-1) for g in out[d][4:]]) for d in ("cuda", "cpu")]
+    numbers = {"forward_rel_err": max(errs[:2]), "fixed_model_rel_err": errs[2],
+               "loss_rel_err": errs[3], "grad_rel_err": rel(*grads),
+               "grad_leaf_max_rel_err": max(errs[4:]),
+               "loss_card": float(out["cuda"][3]), "loss_cpu": float(out["cpu"][3]),
+               "tol": BE_TOL, "leaf_tol": BE_LEAF_TOL}
+    check(max(errs[:4] + [numbers["grad_rel_err"]]) <= BE_TOL
+          and numbers["grad_leaf_max_rel_err"] <= BE_LEAF_TOL, f"config BE card vs CPU: {numbers}")
+    return numbers
+
+
 def published_config_e() -> int:
     """Config E alone at the published ``num_steps`` (5,000 planned steps,
     100 retrainings): its trial rewards, plan and retraining times, and the
@@ -2154,6 +2416,46 @@ def main(argv=None) -> int:
     check(counts_pn == only_k3(0), f"config PN: expected no kernel launch, got {counts_pn}")
     print("config PN card vs CPU: " + json.dumps(planet_card_vs_cpu()), flush=True)
 
+    # config CL: the closed-loop driver at A's and B's full width, 20 MPC steps
+    # each (counted), then its per-step times, profile, the hand-written loop
+    # and the agent's act beside it (not counted); the toy integrator
+    k1 = "fused_rollout_returns"
+    cl, counts_cl = {}, {}
+    for name in ("A", "B"):
+        cl[name], counts_cl[name] = counted(lambda: closed_loop_config(name))
+        cl[name].update(closed_loop_checks(name))
+        print(f"config CL-{name} closed loop: " + json.dumps(cl[name]) + f"  launches {counts_cl[name]}",
+              flush=True)
+    # A: one K1 per CEM generation; B: one K2 per generation and horizon step;
+    # both: one K3 per act-env step
+    want_cl = {"A": {k1: CL_STEPS * 5, k2: 0, k3: CL_STEPS},
+               "B": {k1: 0, k2: CL_STEPS * 5 * HORIZON, k3: CL_STEPS}}
+    for name, want in want_cl.items():
+        check(counts_cl[name] == want,
+              f"config CL-{name}: expected launches {want}, got {counts_cl[name]}")
+    print("closed loop, toy integrator on the card (final state, optimum 1): "
+          + json.dumps(closed_loop_integrator()), flush=True)
+
+    # config BE: pets.train with dynamics_model=basic_ensemble; no kernel
+    # launch (its member forward is plain PyTorch under vmap, as the JAX
+    # package's reaches no Pallas kernel); then card against CPU
+    print(f"config BE: num_steps cut from 5000 to {E_PLANNED_STEPS} planned steps", flush=True)
+    (be_numbers, wrapper_be, state_be, be_dir), counts_be = counted(
+        lambda: pets_config_e(config=CONFIG_BE, label="BE"))
+    try:
+        print("config BE pets.train: " + json.dumps(be_numbers) + f"  launches {counts_be}",
+              flush=True)
+        check(counts_be == only_k3(0), f"config BE: expected no kernel launch, got {counts_be}")
+        from mbrl_tpu_torch.util.replay_buffer import ReplayBuffer
+
+        buffer = ReplayBuffer(E_PLANNED_STEPS, (OBS_E,), (ACT_E,), obs_type=np.double,
+                              action_type=np.double, reward_type=np.double)
+        buffer.load(be_dir)
+        be_check = basic_ensemble_card_vs_cpu(wrapper_be, state_be, buffer.get_all())
+        print("config BE card vs CPU: " + json.dumps(be_check), flush=True)
+    finally:
+        shutil.rmtree(be_dir, ignore_errors=True)
+
     # K3 several times, each row checked and timed at the shape that its
     # launches had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout
     # steps, M's imagined rollouts; the wide route's rows at 512 columns
@@ -2171,10 +2473,16 @@ def main(argv=None) -> int:
         "K3@C100k": (k3, "f32", counts_c100[k3], chain["K3"]),
         "K3@D": (k3, "f32", counts_d[k3], chain["K3"]),
         "K3@M": (k3, "f32", counts_m[k3], chain["K3"]),
+        "K1@CL-A": ("fused_rollout_returns", "bf16", counts_cl["A"][k1], chain["K1"]),
+        "K2@CL-B": (k2, "f32", counts_cl["B"][k2], chain["K2"]),
+        "K3@CL-A": (k3, "bf16", counts_cl["A"][k3], chain["K3"]),
+        "K3@CL-B": (k3, "f32", counts_cl["B"][k3], chain["K3"]),
         "K1@W512": ("fused_rollout_returns", "bf16", counts_w["fused_rollout_returns"], wide_src["K1"]),
         "K2@W512": (k2, "f32", counts_w[k2], wide_src["K2"]),
         "K3@W512": (k3, "f32", counts_w[k3], wide_src["K3"]),
     }
+    for dt in ("f32", "bf16"):  # CL's K1 and K2 launch at A's and B's shapes
+        results[("K1@CL-A", dt)], results[("K2@CL-B", dt)] = results[("K1", dt)], results[("K2", dt)]
     stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
     line = []
     for k, (wrapper, dtype, launches, src) in rows.items():
@@ -2213,6 +2521,12 @@ def main(argv=None) -> int:
                           "env_step_ms_median", "retrain_ms", "rollout_ms", "sac_updates_per_s",
                           "total_s")},
                       "mbpo_MHC": {k: mhc[k] for k in ("rollout_ms", "sac_updates_per_s")},
+                      "closed_loop_CL": {name: {k: cl[name][k] for k in (
+                          "step_ms_median", "step_ms_p90", "ms_per_step_mean",
+                          "agent_act_ms_median", "driver_vs_hand_loop_max_abs_err")}
+                          for name in cl},
+                      "basic_ensemble_BE": {k: be_numbers[k] for k in (
+                          "act_ms_median", "total_s", "best_episode_reward")},
                       "planet_PN": {k: planet_numbers[k] for k in (
                           "update_ms_median", "act_ms_median", "act_ms_p90",
                           "posterior_ms_median", "max_memory_allocated_gb", "total_s")},

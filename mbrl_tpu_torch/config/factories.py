@@ -1,8 +1,8 @@
 """Config-driven object factories (counterpart of ``mbrl_tpu/config/factories.py``):
-auto in/out sizing from env shapes, obs-process fn lookup by dotted name,
-action-bound completion for planner agents. Every object built here takes the
-``device`` it is given (default ``"cuda"``). ``BasicEnsemble``'s member
-special-casing comes with that model's slice.
+auto in/out sizing from env shapes, BasicEnsemble member special-casing,
+obs-process fn lookup by dotted name, action-bound completion for planner
+agents. Every object built here takes the ``device`` it is given (default
+``"cuda"``).
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from mbrl_tpu_torch.config.engine import Config, _import_target, instantiate
+from mbrl_tpu_torch.config.engine import Config, _import_target, instantiate, to_dict
 from mbrl_tpu_torch.device import DeviceLike
 
 
@@ -25,16 +25,24 @@ def create_one_dim_tr_model(
     """Instantiate the dynamics model from cfg.dynamics_model on ``device`` and
     wrap it in a TransitionRewardModel. Returns the wrapper (state is created by
     the caller via ``wrapper.init(generator)`` / loaded from ``model_dir``)."""
-    from mbrl_tpu_torch.models import TransitionRewardModel
+    from mbrl_tpu_torch.models import BasicEnsemble, TransitionRewardModel
 
     model_cfg = cfg.dynamics_model
-    size_cfg = model_cfg
+    target = _import_target(model_cfg["_target_"])
+    basic = isinstance(target, type) and issubclass(target, BasicEnsemble)
+    size_cfg = model_cfg.member_cfg if basic else model_cfg
     if size_cfg.get("in_size", None) in (None, "???"):
         size_cfg["in_size"] = obs_shape[0] + (act_shape[0] if act_shape else 1)
     if size_cfg.get("out_size", None) in (None, "???"):
         size_cfg["out_size"] = obs_shape[0] + int(cfg.algorithm.learned_rewards)
 
-    model = instantiate(model_cfg, device=device)
+    if basic:
+        # the member takes the device; the ensemble is wherever its member is
+        ensemble_cfg = to_dict(model_cfg)
+        member = instantiate(ensemble_cfg.pop("member_cfg"), device=device)
+        model = instantiate(ensemble_cfg, member_model=member)
+    else:
+        model = instantiate(model_cfg, device=device)
 
     name_obs_process_fn = cfg.overrides.get("obs_process_fn", None)
     obs_process_fn = _import_target(name_obs_process_fn) if name_obs_process_fn else None

@@ -12,6 +12,13 @@ Input layout (``mbrl_tpu/models/gaussian_mlp.py:122-154``)::
 Every leaf is a numpy array (e.g. ``jax.tree_util.tree_map(np.asarray, state)``);
 this module never sees JAX.
 
+A ``BasicEnsemble``'s params (``mbrl_tpu/models/basic_ensemble.py:60-63``) are
+``{"members": <the member's params, each leaf stacked on a leading ensemble
+axis>, "elite": (n_elite,) int}``; with ``GaussianMLP`` members
+(``ensemble_size: 1``) a member leaf keeps the singleton member axis, e.g.
+``members.layers[i].w`` (E, 1, d_in, d_out). :func:`convert_params` takes that
+tree as it is (float leaves float32, integer leaves int64).
+
 :func:`convert_sac_state` does the same for the JAX package's ``SACState``
 (``mbrl_tpu/planning/sac.py:53-62``): networks, log-alpha and the update
 counter, and the three optax Adam states (``mu``, ``nu``, ``count``) as
@@ -36,6 +43,7 @@ import torch
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.models.gaussian_mlp import as_dtype
 from mbrl_tpu_torch.ops.normalizer import NormalizerState
+from mbrl_tpu_torch.ops.tree import tree_map
 
 
 def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
@@ -47,12 +55,28 @@ def _field(obj, name: str):
     return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
 
+def convert_basic_ensemble_params(params: Mapping[str, Any], device: DeviceLike = "cuda"
+                                  ) -> Dict[str, Any]:
+    """BasicEnsemble params (numpy leaves) → the port's, in the same layout:
+    floating leaves float32, integer leaves (the elites) int64."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        x = np.asarray(x)
+        return _tensor(x, dev, torch.float32 if np.issubdtype(x.dtype, np.floating) else torch.int64)
+
+    return {"members": tree_map(leaf, params["members"]), "elite": _tensor(params["elite"], dev, torch.int64)}
+
+
 def convert_params(
     params: Mapping[str, Any], device: DeviceLike = "cuda", compute_dtype=None
 ) -> Dict[str, Any]:
     """GaussianMLP params (numpy leaves) → the port's params dict. With
     ``compute_dtype``, the weight stack (layer and head weights) is cast to it;
-    biases and logvar bounds stay float32."""
+    biases and logvar bounds stay float32. BasicEnsemble params (a
+    ``"members"`` tree) go to :func:`convert_basic_ensemble_params`."""
+    if "members" in params:
+        return convert_basic_ensemble_params(params, device)
     dev = resolve_device(device)
     wdt = torch.float32 if compute_dtype is None else as_dtype(compute_dtype)
     out: Dict[str, Any] = {

@@ -1,5 +1,7 @@
 """Agents and trajectory optimizers."""
+from mbrl_tpu_torch.planning.closed_loop import ClosedLoopDriver
 from mbrl_tpu_torch.planning.core import Agent, RandomAgent
+from mbrl_tpu_torch.planning.linear_feedback import PIDAgent
 from mbrl_tpu_torch.planning.sac import SAC, SACAgent
 from mbrl_tpu_torch.planning.trajectory_opt import (
     CEMOptimizer,
@@ -14,9 +16,11 @@ from mbrl_tpu_torch.planning.trajectory_opt import (
 __all__ = [
     "Agent",
     "CEMOptimizer",
+    "ClosedLoopDriver",
     "ICEMOptimizer",
     "MPPIOptimizer",
     "Optimizer",
+    "PIDAgent",
     "RandomAgent",
     "SAC",
     "SACAgent",

@@ -26,7 +26,7 @@ PETS_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("pets_*.ya
 MBPO_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("*mbpo_*.yaml"))
 PLANET_OVERRIDES = sorted(p.stem for p in (JAX_CONF / "overrides").glob("planet_*.yaml"))
 MODELS = ["gaussian_mlp", "gaussian_mlp_ensemble", "gaussian_mlp_ensemble_fast",
-          "gaussian_mlp_ensemble_pallas"]
+          "gaussian_mlp_ensemble_pallas", "basic_ensemble"]
 
 
 def _repointed(tree):
@@ -132,8 +132,14 @@ def test_every_dynamics_model_file_resolves_and_instantiates(model):
     assert to_dict(cfg) == _repointed(jax_to_dict(jax_load_config(JAX_CONF, "main", overrides=args)))
     wrapper = create_one_dim_tr_model(cfg, (4,), (1,), device="cpu")
     net = wrapper.model
+    if model == "basic_ensemble":  # five one-member GaussianMLPs, the sizes on the member
+        assert type(net).__name__ == "BasicEnsemble" and net.ensemble_size == 5
+        assert not hasattr(net, "frozen_param_keys")  # every float leaf trains, as in JAX
+        net = net.member
+        assert net.ensemble_size == 1
+    else:
+        assert net.ensemble_size == (1 if model == "gaussian_mlp" else 7)
     assert (net.in_size, net.out_size, net.hid_size, net.num_layers) == (5, 4, 200, 4)
-    assert net.ensemble_size == (1 if model == "gaussian_mlp" else 7)
     assert net.frozen_param_keys == ("min_logvar", "max_logvar")  # learn_logvar_bounds: false
     fast = model in ("gaussian_mlp_ensemble_fast", "gaussian_mlp_ensemble_pallas")
     assert net.compute_dtype == (torch.bfloat16 if fast else torch.float32)
@@ -181,6 +187,23 @@ def test_chip_smoke_config_e_is_the_loaded_tree_with_num_steps_cut():
     assert chip_smoke.CONFIG_E == loaded
     # the planned steps cover at least two retrainings
     assert chip_smoke.E_PLANNED_STEPS >= 2 * loaded["algorithm"]["freq_train_model"]
+
+
+def test_chip_smoke_config_be_is_the_loaded_tree_with_num_steps_cut():
+    sys.path.insert(0, str(REPO))
+    try:
+        chip_smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(REPO))
+    loaded = to_dict(load_config(CONF, "main", overrides=[
+        "algorithm=pets", "overrides=pets_cartpole", "dynamics_model=basic_ensemble",
+        "action_optimizer=cem"]))
+    assert loaded["overrides"]["num_steps"] == 5000
+    loaded["overrides"]["num_steps"] = chip_smoke.E_PLANNED_STEPS
+    assert chip_smoke.CONFIG_BE == loaded
+    member = loaded["dynamics_model"]["member_cfg"]
+    assert (loaded["dynamics_model"]["ensemble_size"], member["num_layers"], member["hid_size"],
+            member["activation"]) == (5, 4, 200, "silu")
 
 
 def test_chip_smoke_config_m_is_the_loaded_tree_with_its_cuts():

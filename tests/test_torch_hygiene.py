@@ -71,8 +71,9 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
     (and JAX and the JAX package) made unimportable, everything chip_smoke.py
     imports still imports, a ``Config`` is built from its dict, and the model,
     the agent and the cartpole of config E are made from it, and config M's
-    capped cartpole and a SAC learner, and config PN's PlaNet model and pixel
-    stand-in (with ``dm_control`` unimportable too)."""
+    capped cartpole and a SAC learner, config PN's PlaNet model and pixel
+    stand-in (with ``dm_control`` unimportable too), and config BE's
+    BasicEnsemble."""
     mods = _chip_smoke_imports()
     assert "mbrl_tpu_torch.algorithms.pets" in mods or "mbrl_tpu_torch.algorithms" in mods
     code = (
@@ -116,6 +117,8 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
         "planet = instantiate(cfg_pn.dynamics_model, device='cpu')\n"
         "planet.update_posterior(planet.init(torch.Generator().manual_seed(0)), env_pn.reset()[0])\n"
         "env_pn.step(env_pn.action_space.sample())\n"
+        "be = create_one_dim_tr_model(Config(copy.deepcopy(chip_smoke.CONFIG_BE)), (4,), (1,), device='cpu')\n"
+        "assert type(be.model).__name__ == 'BasicEnsemble' and len(be) == 5\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "print(count, len(model), type(agent).__name__); print(bad)\n"
     )
@@ -125,6 +128,44 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
     summary, bad = out.stdout.strip().splitlines()[-2:]
     count, members, agent = summary.split()
     assert int(count) >= 12 and members == "7" and agent == "TrajectoryOptimizerAgent"
+    assert bad == "[]", bad
+
+
+@pytest.mark.parametrize("module,cls", [("pets_halfcheetah", "HalfCheetahEnv"),
+                                        ("pets_cartpole", "CartPoleEnv")])
+def test_preprocess_fn_imports_without_gymnasium(module, cls):
+    """The YAML tree's ``obs_process_fn`` paths (and HalfCheetah's reward)
+    import and run with ``gymnasium`` and ``mujoco`` unimportable; only making
+    an environment reaches them."""
+    code = (
+        "import sys, importlib, importlib.abc\n"
+        "BLOCKED = ('gymnasium', 'gym', 'mujoco', 'yaml', 'jax', 'mbrl_tpu', 'dm_control')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ModuleNotFoundError(f'{name} is blocked in this test', name=name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np, torch\n"
+        "from mbrl_tpu_torch.config.engine import _import_target\n"
+        f"fn = _import_target('mbrl_tpu_torch.envs.{module}.{cls}.preprocess_fn')\n"
+        "out = fn(torch.zeros((3, 18)))\n"
+        "import mbrl_tpu_torch.envs as envs\n"
+        f"c = getattr(importlib.import_module('mbrl_tpu_torch.envs.{module}'), '{cls}')\n"
+        "assert getattr(envs, 'PetsHalfCheetahEnv').__name__ == 'HalfCheetahEnv'\n"
+        "try:\n"
+        "    c()\n"
+        "    made = 'made'\n"
+        "except ModuleNotFoundError as e:\n"
+        "    made = e.name.split('.')[0]\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
+        "print(tuple(out.shape), made); print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    shapes, bad = out.stdout.strip().splitlines()[-2:]
+    assert shapes.split(")")[0] + ")" in ("(3, 18)", "(3, 19)")
+    assert shapes.endswith("gymnasium")  # making one needs gymnasium
     assert bad == "[]", bad
 
 
