@@ -78,8 +78,21 @@ with random weights from a seed:
   BE  ``algorithms.pets.train`` with ``dynamics_model/basic_ensemble.yaml`` (5
      one-member GaussianMLPs of 4x200 silu, ``fixed_model``) on the port's
      cartpole at ``pets_cartpole``'s values, ``num_steps`` cut to
-     ``E_PLANNED_STEPS``: no K1-K3 launch; then the trained ensemble's forward,
+     ``BE_PLANNED_STEPS``: no K1-K3 launch; then the trained ensemble's forward,
      propagation, loss and gradient on the card against the CPU
+  DG  the run directories of E, M and PN reloaded: ``load_experiment`` and
+     ``load_agent`` on E's (the forward and the first action against the
+     run's own model and a hand-built agent, to 0.0), a warm ``act`` timed
+     and traced (``util.profiling``), ``DatasetEvaluator``'s prediction pass
+     card against CPU, ``Visualizer`` and ``FineTuner`` with the run's
+     planner; ``load_agent`` on M's (the SAC actions against the learner's,
+     to 0.0) and an evaluation recorded by ``VideoRecorder``;
+     ``PlanetVisualizer`` on PN's (its frames card against CPU); the
+     true-dynamics controller (4 worker processes); the three tutorials
+     (``tutorial_pets``: K2 at 4 elites of 3x128). The cuts: FineTuner's
+     ``steps_to_collect`` 10,000 -> 200 and ``num_epochs`` 50 -> 5,
+     ``tutorial_pets``' ``num_steps`` 2,000 -> 400, the 1-D fit's epochs
+     500 -> 200
 
 and checks that each config's launches went through its kernel, that the
 rollout on the card agrees with the plain CPU path on an identical-member
@@ -113,6 +126,8 @@ BATCH = POP * PARTICLES
 MBPO_ROWS, MBPO_STEPS = 100_000, 20
 # config E: planned steps of the PETS run (the published run has 5,000)
 E_PLANNED_STEPS = 300
+# config BE: planned steps of its PETS run (cut to make room for phase DG)
+BE_PLANNED_STEPS = 100
 OBS_E, ACT_E, POP_E = 4, 1, 350
 MPPI_POP, ICEM_HORIZON = 350, 10
 T_ROWS = 10_000
@@ -216,14 +231,15 @@ def stack_bytes(stack) -> int:
 
 
 def elite_stack(in_size: int, out_size: int, dtype, g: torch.Generator,
-                deterministic: bool = False, hid: int = HID):
-    """A 5-elite packed stack from the port's own init, and the logvar bounds
-    (None for a deterministic model)."""
+                deterministic: bool = False, hid: int = HID, layers: int = LAYERS,
+                members: int = ENSEMBLE, elites: int = ELITES):
+    """An ``elites``-member packed stack (of ``members``) from the port's own
+    init, and the logvar bounds (None for a deterministic model)."""
     from mbrl_tpu_torch.models import GaussianMLP
 
-    model = GaussianMLP(in_size, out_size, LAYERS, ENSEMBLE, hid, activation="silu",
+    model = GaussianMLP(in_size, out_size, layers, members, hid, activation="silu",
                         deterministic=deterministic, compute_dtype=dtype, device="cuda")
-    params = model.set_elite(model.init(g), list(range(ELITES)))
+    params = model.set_elite(model.init(g), list(range(elites)))
     p = model._elite_view(params)
     if deterministic:
         return model.pack(p), None, None
@@ -409,6 +425,17 @@ def kernel_checks():
         stack_e, max_e, min_e = elite_stack(OBS_E + ACT_E, OBS_E, dtype, g)
         xe = torch.randn((ELITES, POP_E * PARTICLES // ELITES, OBS_E + ACT_E), generator=g).to(dev)
         results[("K2@E", dt_name)] = check_k2(K, g, xe, stack_e, max_e, min_e, dt_name, "E")
+        # K3 at config DG's model rollouts on E's model (Visualizer's 5
+        # samples): one row per elite
+        results[("K3@DG", dt_name)] = check_k3(K, xe[:, :1].contiguous(), stack_e, dt_name, "DG")
+        # K2 at tutorial_pets' shape: 4 elites of 3x128, 350 x 20 / 4 = 1,750 rows
+        stack_t, max_t, min_t = elite_stack(OBS_E + ACT_E, OBS_E, dtype, g, hid=TUT_HID,
+                                            layers=TUT_LAYERS, members=TUT_MEMBERS,
+                                            elites=TUT_ELITES)
+        xt = torch.randn((TUT_ELITES, POP_E * PARTICLES // TUT_ELITES, OBS_E + ACT_E),
+                         generator=g).to(dev)
+        results[("K2@TUT", dt_name)] = check_k2(K, g, xt, stack_t, max_t, min_t, dt_name,
+                                                "tutorial_pets")
         # one iCEM plan launches K2 `horizon` times at each of these row counts:
         # the row of the kernels' line is the mean over them, the worst error
         per_rows = {}
@@ -874,10 +901,17 @@ def _pets_config_e(device, asked, config, work_dir, label="E"):
     # pets.train builds its model itself and returns the best reward only: keep
     # the wrapper it builds (for `model.packs`); the rest is read from what the
     # run writes. The logger's table of every epoch goes to a buffer, not stdout.
-    wrappers = []
+    wrappers, saved = [], []
 
-    def build_model(*a, **kw):
+    def build_model(*a, **kw):  # keeps each state the run saves, as it was in memory
         wrappers.append(create(*a, **kw))
+        save = wrappers[-1].save
+
+        def saving(state, save_dir):
+            saved.append(state)
+            return save(state, save_dir)
+
+        wrappers[-1].save = saving
         return wrappers[-1]
 
     create = pets.create_one_dim_tr_model
@@ -919,6 +953,16 @@ def _pets_config_e(device, asked, config, work_dir, label="E"):
     state = wrapper.load(init, work)
     check(state["params"]["elite"].shape == (ELITES,) and
           state["normalizer"].mean.dtype == torch.float64, "model.pkl: elites or normalizer lost")
+    # ... and is the last retraining's state as it was in memory, bit for bit
+    from mbrl_tpu_torch.ops.tree import tree_leaves_with_path
+
+    last = saved[-1]
+    pairs = list(zip(tree_leaves_with_path(state["params"]), tree_leaves_with_path(last["params"])))
+    pairs += [((("mean",), state["normalizer"].mean), (("mean",), last["normalizer"].mean)),
+              ((("std",), state["normalizer"].std), (("std",), last["normalizer"].std))]
+    check(len(saved) == retrainings and all(
+        pa == pb and torch.equal(a.to(b.device), b) for (pa, a), (pb, b) in pairs),
+        f"config {label}: model.pkl is not the last retraining's state ({len(saved)} saves)")
 
     # the retrainings, from the model_train.csv the run's logger wrote
     log = read_csv(work / "model_train.csv")
@@ -1388,11 +1432,13 @@ class _Timed:
 def mbpo_config_m(device: str = "cuda", config=None):
     """``mbpo.train`` on the port's cartpole (``util.env.make_env``, capped at
     200 steps) with ``CONFIG_M``, printing one line at each epoch's
-    evaluation. Returns the run's numbers and its work directory (the caller
-    removes it)."""
+    evaluation. Returns the run's numbers, its work directory (the caller
+    removes it) and the learner as it was at the last save of ``sac.pkl``
+    (its ``SAC`` and a copy of its policy)."""
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_mbpo_")
     try:
-        return _mbpo_config_m(device, config, work_dir), work_dir
+        numbers, learner = _mbpo_config_m(device, config, work_dir)
+        return numbers, work_dir, learner
     except BaseException:
         shutil.rmtree(work_dir, ignore_errors=True)
         raise
@@ -1446,6 +1492,13 @@ def _mbpo_config_m(device, config, work_dir):
         return reward
 
     stored = []
+    learner = []  # (sac, a copy of the policy) at each save of sac.pkl
+    save_checkpoint = SAC.save_checkpoint
+
+    def saving(self, state, path):
+        learner.append((self, copy.deepcopy(state.policy)))
+        return save_checkpoint(self, state, path)
+
     # the methods patched on their classes get no `self` through a plain
     # callable: bind it
     retrain = lambda self, *a, **kw: retrains(self, *a, **kw)  # noqa: E731
@@ -1456,6 +1509,7 @@ def _mbpo_config_m(device, config, work_dir):
             mock.patch.object(SAC, "update_from_buffer", bundle), \
             mock.patch.object(mbpo, "create_one_dim_tr_model", build_model), \
             mock.patch.object(mbpo, "evaluate", evaluated), \
+            mock.patch.object(SAC, "save_checkpoint", saving), \
             contextlib.redirect_stdout(io.StringIO()):
         best = mbpo.train(env, test_env, term_fn, cfg, silent=False, work_dir=work_dir,
                           device=device)
@@ -1521,7 +1575,7 @@ def _mbpo_config_m(device, config, work_dir):
         "sac_losses_last": {k: float(v[-1]) for k, v in metrics.items()},
         "bundle_profile": busy,
         "model_losses_first_last": [train_log["model_loss"][0], train_log["model_loss"][-1]],
-    }
+    }, learner[-1]
 
 
 # --------------------------------------------------------------------------- #
@@ -2213,6 +2267,327 @@ def basic_ensemble_card_vs_cpu(wrapper, state, rows):
     return numbers
 
 
+# --------------------------------------------------------------------------- #
+# Config DG: the diagnostics, load_agent, video, profiling and the tutorials,
+# on the run directories that configs E, M and PN saved
+# --------------------------------------------------------------------------- #
+# the JAX package's CLI defaults (diagnostics/visualize_model_preds.py:125-128,
+# finetune_model_with_controller.py:106-113, planet_visualizer.py's CLI and its
+# planner :43-46). The cuts: FineTuner's steps_to_collect 10,000 -> 200 and
+# num_epochs 50 -> 5; tutorial_pets' num_steps 2,000 -> 400; the 1-D fit's
+# epochs 500 -> 200 (where its tests hold it), to keep the script's time
+DG_VIS = {"lookahead": 25, "num_model_samples": 5, "num_steps": 50}
+DG_FT = {"batch_size": 256, "val_ratio": 0.1, "num_epochs": 5, "patience": 10,
+         "steps_to_collect": 200}
+DG_FT_PUBLISHED = {"num_epochs": 50, "steps_to_collect": 10_000}
+DG_PV = {"start_step": 0, "lookahead": 50, "seed": 1234, "num_iterations": 10,
+         "population_size": 1000, "planning_horizon": 12}
+DG_TDC = {"horizon": 15, "population_size": 100, "num_iterations": 5, "num_workers": 4}
+DG_TUT_STEPS, DG_TUT_PUBLISHED = 400, 2000
+DG_FIT_EPOCHS, DG_FIT_PUBLISHED = 200, 500
+DG_WARM_ACTS = 5
+# the fixed observation config E's reloaded and hand-built agents act on
+DG_OBS = np.array([0.02, -0.01, 0.03, 0.01], np.float32)
+# tutorial_pets' model and planner: 5 members (4 elites) of 3x128 silu, in 5,
+# out 4; CEM 350 x 20 particles x horizon 15, 5 iterations
+TUT_MEMBERS, TUT_ELITES, TUT_LAYERS, TUT_HID = 5, 4, 3, 128
+# thresholds of the tutorials' checks: tests/test_optimizers.py's for
+# Rosenbrock (optimum 0); tests/test_torch_tutorials.py's for the 1-D fit
+ROSENBROCK_THRESHOLD, FIT_RMSE = -0.1, 0.25
+
+
+class RenderedCartpole:
+    """Wraps the port's cartpole (bare or in its TimeLimit) with a ``render``
+    that draws the cart and the pole into a 64x96 RGB frame (the package's
+    cartpole renders nothing, as the JAX package's does). A test fixture of
+    this script, not a part of the package."""
+
+    def __init__(self, env):
+        self.env = env
+        self.observation_space, self.action_space = env.observation_space, env.action_space
+
+    def reset(self, **kw):
+        return self.env.reset(**kw)
+
+    def step(self, action):
+        return self.env.step(action)
+
+    def render(self) -> np.ndarray:
+        x, _, theta, _ = getattr(self.env, "unwrapped", self.env).state
+        frame = np.full((64, 96, 3), 255, np.uint8)
+        frame[48:50] = 80  # the track
+        cx = int(np.clip(48 + 16 * x, 4, 91))
+        frame[42:48, cx - 4:cx + 5] = (40, 40, 200)  # the cart
+        for r in np.linspace(0.0, 30.0, 31):  # the pole
+            py, px = int(44 - r * np.cos(theta)), int(cx + r * np.sin(theta))
+            if 0 <= py < 64 and 0 <= px < 96:
+                frame[py, px] = (200, 120, 40)
+        return frame
+
+
+def dg_config_e(e_dir, wrapper_e, state_e, timer, device: str = "cuda"):
+    """Config E's run directory reloaded: ``load_experiment`` and ``load_agent``
+    against the run's own model and a hand-built agent (to 0.0), a warm
+    ``act`` timed and traced, ``DatasetEvaluator``'s prediction pass card
+    against CPU, ``Visualizer`` with the planner and ``FineTuner`` with the
+    planner. ``state_e`` is the state the run saved last, as it was in memory."""
+    from mbrl_tpu_torch.config import Config, complete_agent_cfg, instantiate
+    from mbrl_tpu_torch.diagnostics import DatasetEvaluator, FineTuner, Visualizer
+    from mbrl_tpu_torch.diagnostics.common import load_experiment
+    from mbrl_tpu_torch.envs import reward_fns, termination_fns
+    from mbrl_tpu_torch.models import ModelEnv
+    from mbrl_tpu_torch.planning import create_trajectory_optim_agent_for_model, load_agent
+    from mbrl_tpu_torch.util import profiling
+
+    def cfg_e():
+        return Config(copy.deepcopy(CONFIG_E))
+
+    e_dir = pathlib.Path(e_dir)
+    out = {}
+    with timer.phase("load_experiment"):
+        _, env, wrapper, state, buffer, _, _ = load_experiment(e_dir, cfg=cfg_e(), device=device)
+    rows = buffer.get_all()
+    with torch.no_grad():
+        got = wrapper.model.forward(state["params"], wrapper.process_batch(state, rows)[0])
+        ref = wrapper_e.model.forward(state_e["params"], wrapper_e.process_batch(state_e, rows)[0])
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    check(err == 0.0, f"config DG: the reloaded model's forward differs from the run's by {err}")
+    out["load_experiment"] = {"rows": buffer.num_stored, "forward_max_abs_err": err}
+
+    # load_agent against an agent built by hand from the run's config and state
+    with timer.phase("load_agent"):
+        agent = load_agent(e_dir, env, cfg=cfg_e(), device=device)
+    hand_cfg = cfg_e()
+    hand = instantiate(complete_agent_cfg(env, hand_cfg.algorithm.agent, device=device), seed=1)
+    hand = create_trajectory_optim_agent_for_model(
+        ModelEnv(wrapper_e, termination_fns.cartpole, reward_fns.cartpole), hand,
+        num_particles=hand_cfg.algorithm.num_particles)
+    hand.set_eval_state(state_e)
+    with timer.phase("act_first"):
+        first = agent.act(DG_OBS)
+    first_hand = hand.act(DG_OBS)
+    err = float(np.abs(first - first_hand).max())
+    check(err == 0.0 and bool(np.all(np.abs(first) <= 1.0)),
+          f"config DG: load_agent's first action {first} is not the hand-built agent's {first_hand}")
+    for _ in range(DG_WARM_ACTS):
+        with timer.phase("act_warm"):
+            agent.act(DG_OBS)
+    # one warm act under the profiler: K2's symbol on the device, the
+    # annotation on the host
+    trace_dir = e_dir / "dg_trace"
+    with profiling.trace(str(trace_dir)):
+        with profiling.annotate("plan"):
+            agent.act(DG_OBS)
+    (trace_file,) = trace_dir.glob("trace_*.json")
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    k2_events = sum(1 for e in events if e.get("cat") == "kernel" and "gaussian_tc_kernel" in e["name"])
+    annotated = [e.get("cat") for e in events if e.get("name") == "plan"]
+    check(k2_events == 5 * 15 and annotated,
+          f"config DG: the trace has {k2_events} K2 events and 'plan' in {annotated}")
+    out["load_agent"] = {"first_action": first.tolist(), "vs_hand_built_max_abs_err": err,
+                         "trace": {"file_mb": trace_file.stat().st_size / 2**20,
+                                   "k2_events": k2_events, "plan_categories": sorted(set(annotated)),
+                                   "device_kernels": kernels[:8]}}
+
+    # DatasetEvaluator's prediction pass over the whole buffer, card against CPU
+    preds = {}
+    for dev in (device, "cpu"):
+        ev = DatasetEvaluator(str(e_dir), str(e_dir), str(e_dir / "dg_eval"), cfg=cfg_e(), device=dev)
+        ev.replay_buffer._rng = np.random.default_rng(SEED)  # the same shuffle on both
+        with timer.phase(f"dataset_predict_{'card' if dev == device else 'cpu'}"):
+            preds[dev] = ev.predict(ev.dataset())
+    (means, targets), (means_cpu, targets_cpu) = preds[device], preds["cpu"]
+    tol = TOL[("K3", "f32")]
+    err, ok = max_err(torch.from_numpy(means), torch.from_numpy(means_cpu), tol)
+    check(ok and np.array_equal(targets, targets_cpu) and means.shape == (ENSEMBLE, len(targets), OBS_E),
+          f"config DG: DatasetEvaluator on the card vs the CPU: max abs err {err} (tol {tol})")
+    out["dataset_evaluator"] = {"rows": len(targets), "card_vs_cpu_max_abs_err": err, "tol": tol}
+
+    # Visualizer with the run's planner: one plan every lookahead steps
+    with timer.phase("visualizer"):
+        vis = Visualizer(DG_VIS["lookahead"], str(e_dir), agent_dir=str(e_dir),
+                         num_steps=DG_VIS["num_steps"], num_model_samples=DG_VIS["num_model_samples"],
+                         cfg=cfg_e(), device=device)
+        rollouts = vis.compute()
+    horizon = CONFIG_E["algorithm"]["agent"]["planning_horizon"]
+    check(len(rollouts) == DG_VIS["num_steps"] // DG_VIS["lookahead"] and all(
+        bool(np.isfinite(real).all()) and real.shape[1] == OBS_E and 2 <= len(real) <= horizon + 1
+        and model.shape == (horizon + 1, DG_VIS["num_model_samples"], OBS_E)
+        and bool(np.isfinite(model).all()) for _, real, model in rollouts),
+        "config DG: Visualizer's rollouts " + str([(r.shape, m.shape) for _, r, m in rollouts]))
+    out["visualizer"] = {"plans": len(rollouts), "real_steps": [len(r) - 1 for _, r, _ in rollouts],
+                         "model_shape": list(rollouts[0][2].shape)}
+
+    # FineTuner with the run's planner: collect, retrain, save
+    with timer.phase("finetune"):
+        ft = FineTuner(str(e_dir), str(e_dir), agent_type="planner", cfg=cfg_e(), device=device)
+        ft.run(**DG_FT)
+    written = sorted(p.name for p in ft.outdir.iterdir())
+    losses = np.load(ft.outdir / "finetune_losses.npz")
+    tuned = wrapper.load(wrapper.init(torch.Generator().manual_seed(0)), ft.outdir)
+    with torch.no_grad():
+        mean, _ = wrapper.model.forward(tuned["params"], wrapper.process_batch(tuned, rows)[0])
+    check({"model.pkl", "replay_buffer.npz", "finetune_losses.npz"} <= set(written)
+          and bool(np.isfinite(losses["train"]).all()) and bool(torch.isfinite(mean).all()),
+          f"config DG: FineTuner wrote {written}, losses {losses['train']}")
+    out["finetune"] = {"published": DG_FT_PUBLISHED, **{k: DG_FT[k] for k in ("num_epochs", "steps_to_collect")},
+                       "written": written, "train_losses": losses["train"].tolist(),
+                       "val_scores": losses["val"].tolist()}
+    return out
+
+
+def dg_config_m(m_dir, learner, timer, device: str = "cuda"):
+    """Config M's run directory reloaded: ``load_agent``'s deterministic SAC
+    actions against the learner's own policy as it was when it saved
+    ``sac.pkl`` (to 0.0), and one evaluation episode recorded by a
+    ``VideoRecorder``."""
+    from mbrl_tpu_torch.algorithms import mbpo
+    from mbrl_tpu_torch.config import Config
+    from mbrl_tpu_torch.planning import load_agent
+    from mbrl_tpu_torch.util.env import make_env
+    from mbrl_tpu_torch.util.video import VideoRecorder
+
+    cfg = Config(copy.deepcopy(CONFIG_M))
+    env, _, _ = make_env(cfg)
+    with timer.phase("load_agent_sac"):
+        agent = load_agent(m_dir, env, cfg=cfg, device=device)
+    sac, policy = learner
+    obs = (0.1 * torch.randn((8, OBS_M), generator=torch.Generator().manual_seed(SEED + 50))).numpy()
+    got = agent.act(obs, sample=False)
+    ref = sac.act_tensor(policy, torch.as_tensor(obs, device=device),
+                         torch.Generator(device=device).manual_seed(SEED), sample=False).cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    check(got.shape == (8, ACT_M) and err == 0.0,
+          f"config DG: load_agent's SAC actions differ from the learner's by {err}")
+    test_env = RenderedCartpole(seeded_cartpole(make_env(cfg)[0]))
+    recorder = VideoRecorder(pathlib.Path(m_dir) / "dg_video")
+    with timer.phase("evaluate_with_video"):
+        reward = mbpo.evaluate(test_env, agent, 1, video_recorder=recorder)
+        recorder.save("0.mp4")
+    written = sorted(p.name for p in recorder.save_dir.iterdir())
+    check(len(written) == 1 and written[0].startswith("0.mp4") and len(recorder.frames) >= 1,
+          f"config DG: the evaluation video wrote {written}")
+    return {"sac_actions_vs_learner_max_abs_err": err, "eval_reward": float(reward),
+            "video": {"files": written, "frames": len(recorder.frames),
+                      "frame_shape": list(recorder.frames[0].shape)}}
+
+
+def dg_config_pn(pn_dir, timer, device: str = "cuda"):
+    """Config PN's run directory reloaded: ``PlanetVisualizer`` at
+    ``planet.yaml``'s width (latent CEM 10 x 1,000 x 12, lookahead 50 from
+    step 0) on ``PixelCheetah``; the prior replay's frames rendered on the card
+    against a CPU model loaded from the same ``planet.pkl``; the artifact."""
+    import contextlib
+    import io
+
+    from mbrl_tpu_torch.config import Config, instantiate
+    from mbrl_tpu_torch.diagnostics import PlanetVisualizer
+
+    kw = {k: v for k, v in DG_PV.items() if k not in ("start_step", "lookahead")}
+    with timer.phase("planet_visualizer"), contextlib.redirect_stdout(io.StringIO()):
+        vis = PlanetVisualizer(DG_PV["start_step"], DG_PV["lookahead"], str(pn_dir),
+                               env=PixelCheetah(), cfg=Config(copy.deepcopy(CONFIG_PN)),
+                               device=device, **kw)
+        result = vis.compute()
+    n = len(result["actions"])
+    check(n == DG_PV["lookahead"] and result["pred_imgs"].shape == (n + 1, 64, 64, 3),
+          f"config DG: PlanetVisualizer replayed {n} steps, frames {result['pred_imgs'].shape}")
+    cfg_cpu = Config(copy.deepcopy(CONFIG_PN))
+    cfg_cpu.dynamics_model["action_size"] = ACT_PN
+    cpu = instantiate(cfg_cpu.dynamics_model, device="cpu")
+    cpu_state = cpu.load(cpu.init(torch.Generator().manual_seed(0)), pn_dir)
+    latents, beliefs = result["latents"].cpu(), result["beliefs"].cpu()
+    frames_cpu = cpu.render(cpu_state, latents, beliefs)
+    levels = np.abs(result["pred_imgs"].astype(int) - frames_cpu.astype(int))
+    with torch.no_grad(), cpu.precision():
+        dec_cpu = cpu._decode(cpu_state["params"], latents, beliefs)
+    with torch.no_grad(), vis.planet.precision():
+        dec = vis.planet._decode(vis.planet_state["params"], result["latents"],
+                                 result["beliefs"]).cpu()
+    rel = float((dec - dec_cpu).abs().max() / dec_cpu.abs().max())
+    check(int(levels.max()) <= 1 and rel <= PN_TOL,
+          f"config DG: PlanetVisualizer's frames card vs CPU: {int(levels.max())} levels, "
+          f"decode rel err {rel}")
+    with timer.phase("planet_visualizer_write"), contextlib.redirect_stdout(io.StringIO()):
+        artifact = vis.write(result["true_obs"], result["pred_imgs"])
+    check(artifact.exists(), f"config DG: {artifact} not written")
+    return {"replayed_steps": n, "true_total_reward": result["true_total_reward"],
+            "pred_total_reward": result["pred_total_reward"],
+            "frames_card_vs_cpu": {"max_levels": int(levels.max()),
+                                   "share_differing": float((levels > 0).mean()),
+                                   "decode_rel_err": rel, "tol": PN_TOL},
+            "artifact": artifact.name, "artifact_mb": artifact.stat().st_size / 2**20}
+
+
+def dg_true_dynamics(timer, device: str = "cuda"):
+    """``TrueDynamicsController`` on the numpy cartpole: one plan (CEM on the
+    card, candidates scored by 4 worker processes on the real dynamics), in
+    bounds, and its real return."""
+    from mbrl_tpu_torch.diagnostics.control_env import TrueDynamicsController
+
+    ctrl = TrueDynamicsController("cartpole_continuous", seed=SEED, device=device, **DG_TDC)
+    try:
+        state = ctrl.handler.get_current_state(ctrl.env)
+        with timer.phase("true_dynamics_plan"):
+            plan = ctrl.plan(state)
+        obs = np.asarray(ctrl.env.state, np.float32)
+        _, rewards, _ = ctrl.handler.rollout_env(ctrl.env, obs, len(plan), plan=plan)
+    finally:
+        ctrl.close()
+    check(plan.shape == (DG_TDC["horizon"], ACT_E) and bool(np.all(np.abs(plan) <= 1.0)),
+          f"config DG: TrueDynamicsController's plan {plan.shape} out of bounds")
+    return {"plan_shape": list(plan.shape), "real_return": float(np.sum(rewards)),
+            "max_return": DG_TDC["horizon"]}
+
+
+def dg_tutorials(timer, device: str = "cuda"):
+    """``tutorial_cem_rosenbrock`` at its defaults, card and CPU, and
+    ``tutorial_fit_ensemble_1d`` at ``DG_FIT_EPOCHS``."""
+    import contextlib
+    import io
+
+    from mbrl_tpu_torch.examples import tutorial_cem_rosenbrock, tutorial_fit_ensemble_1d
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        with timer.phase("tutorial_cem_rosenbrock"):
+            best = tutorial_cem_rosenbrock.main(device=device)
+        best_cpu = tutorial_cem_rosenbrock.main(device="cpu")
+        with timer.phase("tutorial_fit_ensemble_1d"):
+            rmse = tutorial_fit_ensemble_1d.main(num_epochs=DG_FIT_EPOCHS, device=device)
+    # the mean aleatoric variances left and right of 0, as the tutorial prints them
+    left, right = buf.getvalue().split("aleatoric var left ")[-1].split(" (")[0].split(" vs right ")
+    stats = {"rmse": rmse, "aleatoric_left": float(left), "aleatoric_right": float(right)}
+    check(best > ROSENBROCK_THRESHOLD and best_cpu > ROSENBROCK_THRESHOLD,
+          f"config DG: Rosenbrock best {best} (card), {best_cpu} (CPU)")
+    check(rmse < FIT_RMSE and stats["aleatoric_left"] < stats["aleatoric_right"],
+          f"config DG: the 1-D fit {stats}")
+    return {"rosenbrock_best": {"card": best, "cpu": best_cpu},
+            "fit_ensemble_1d": {"epochs": DG_FIT_EPOCHS, "published_epochs": DG_FIT_PUBLISHED,
+                                **stats}}
+
+
+def dg_tutorial_pets(timer, device: str = "cuda"):
+    """``tutorial_pets.main(num_steps=DG_TUT_STEPS)``: its episodes, read
+    from what it prints."""
+    import contextlib
+    import io
+
+    from mbrl_tpu_torch.examples import tutorial_pets
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), timer.phase("tutorial_pets"):
+        best = tutorial_pets.main(num_steps=DG_TUT_STEPS, device=device)
+    lines = [line.split("|") for line in buf.getvalue().splitlines() if line.startswith("steps")]
+    env_steps = int(lines[-1][0].split()[1])
+    rewards = [float(line[1].split()[-1]) for line in lines]
+    check(env_steps >= DG_TUT_STEPS and bool(np.isfinite(best)),
+          f"config DG: tutorial_pets ran {env_steps} steps, best {best}")
+    return {"num_steps": DG_TUT_STEPS, "published_num_steps": DG_TUT_PUBLISHED,
+            "env_steps": env_steps, "episode_rewards": rewards, "best_episode_reward": float(best)}
+
+
 def published_config_e() -> int:
     """Config E alone at the published ``num_steps`` (5,000 planned steps,
     100 retrainings): its trial rewards, plan and retraining times, and the
@@ -2249,7 +2624,7 @@ def published_config_m() -> int:
     print(f"config M at its published num_steps {M_PUBLISHED_STEPS}", flush=True)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    numbers, work_dir = mbpo_config_m(config=config)
+    numbers, work_dir, _ = mbpo_config_m(config=config)
     counts = K.launch_counts()
     shutil.rmtree(work_dir, ignore_errors=True)
     want = {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0,
@@ -2279,7 +2654,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from mbrl_tpu_torch.ops import build
-    from mbrl_tpu_torch.ops import kernels as K
 
     print(card_line(), flush=True)
     t0 = time.perf_counter()
@@ -2298,6 +2672,18 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+
+    import contextlib
+
+    with contextlib.ExitStack() as cleanup:
+        return default_phases(t0, build_s, cleanup)
+
+
+def default_phases(t0: float, build_s: float, cleanup) -> int:
+    """Every phase after the build, in order. The run directories of configs
+    E, M and PN stay until phase DG has reloaded them; ``cleanup`` (an
+    ``ExitStack``) removes them, also when a check fails."""
+    from mbrl_tpu_torch.ops import kernels as K
 
     results = kernel_checks()
     print("activations, ragged rows (max abs err): " + json.dumps(activation_sweep()), flush=True)
@@ -2348,29 +2734,27 @@ def main(argv=None) -> int:
     print(f"config E: num_steps cut from 5000 to {E_PLANNED_STEPS} planned steps after "
           f"{CONFIG_E['algorithm']['initial_exploration_steps']} of random exploration (the run "
           "ends at the first episode boundary after that)", flush=True)
-    (pets_numbers, wrapper_e, state_e, work_dir), counts_e = counted(pets_config_e)
-    try:
-        print("config E pets.train: " + json.dumps(pets_numbers) + f"  launches {counts_e}", flush=True)
-        want_e = only_k2(pets_numbers["planned_steps"] * 5 * 15)
-        check(counts_e == want_e, f"config E: expected launches {want_e}, got {counts_e}")
-        train_t = train_config_t()
-        print("config T training: " + json.dumps(train_t), flush=True)
-        times_mppi, counts_mppi = counted(plan_mppi)
-        print(f"MPPI act ms: {times_mppi}  launches {counts_mppi}", flush=True)
-        check(counts_mppi == only_k2(3 * 5 * HORIZON),
-              f"MPPI: expected launches {only_k2(3 * 5 * HORIZON)}, got {counts_mppi}")
-        (times_icem, icem_sizes, icem_h), counts_icem = counted(lambda: plan_icem(wrapper_e, state_e))
-        print(f"iCEM act ms: {times_icem}  populations {json.dumps(icem_sizes)}  "
-              f"launches {counts_icem}", flush=True)
-        check(counts_icem == only_k2(4 * 5 * icem_h),  # three acts and one plan
-              f"iCEM: expected launches {only_k2(4 * 5 * icem_h)}, got {counts_icem}")
-        times_batch, counts_batch = counted(act_batch_config_b)
-        print(f"act_batch (4 environments, config B) ms: {times_batch}  launches {counts_batch}",
-              flush=True)
-        check(counts_batch == only_k2(3 * 4 * 5 * HORIZON),
-              f"act_batch: expected launches {only_k2(3 * 4 * 5 * HORIZON)}, got {counts_batch}")
-    finally:
-        shutil.rmtree(work_dir, ignore_errors=True)
+    (pets_numbers, wrapper_e, state_e, e_dir), counts_e = counted(pets_config_e)
+    cleanup.callback(shutil.rmtree, e_dir, ignore_errors=True)
+    print("config E pets.train: " + json.dumps(pets_numbers) + f"  launches {counts_e}", flush=True)
+    want_e = only_k2(pets_numbers["planned_steps"] * 5 * 15)
+    check(counts_e == want_e, f"config E: expected launches {want_e}, got {counts_e}")
+    train_t = train_config_t()
+    print("config T training: " + json.dumps(train_t), flush=True)
+    times_mppi, counts_mppi = counted(plan_mppi)
+    print(f"MPPI act ms: {times_mppi}  launches {counts_mppi}", flush=True)
+    check(counts_mppi == only_k2(3 * 5 * HORIZON),
+          f"MPPI: expected launches {only_k2(3 * 5 * HORIZON)}, got {counts_mppi}")
+    (times_icem, icem_sizes, icem_h), counts_icem = counted(lambda: plan_icem(wrapper_e, state_e))
+    print(f"iCEM act ms: {times_icem}  populations {json.dumps(icem_sizes)}  "
+          f"launches {counts_icem}", flush=True)
+    check(counts_icem == only_k2(4 * 5 * icem_h),  # three acts and one plan
+          f"iCEM: expected launches {only_k2(4 * 5 * icem_h)}, got {counts_icem}")
+    times_batch, counts_batch = counted(act_batch_config_b)
+    print(f"act_batch (4 environments, config B) ms: {times_batch}  launches {counts_batch}",
+          flush=True)
+    check(counts_batch == only_k2(3 * 4 * 5 * HORIZON),
+          f"act_batch: expected launches {only_k2(3 * 4 * 5 * HORIZON)}, got {counts_batch}")
 
     # the wide route on the entry points: two acts of A (5 K1 each) and of B
     # (150 K2 each), one _forward_sharded (K3); then a warm act of B under the
@@ -2393,8 +2777,8 @@ def main(argv=None) -> int:
     print(f"config M: num_steps cut from 5000 to {M_NUM_STEPS} (2 epochs) after "
           f"{CONFIG_M['algorithm']['initial_exploration_steps']} steps of exploration by the SAC agent; "
           f"dataset_size {CONFIG_M['algorithm']['dataset_size']}", flush=True)
-    (mbpo_numbers, m_dir), counts_m = counted(mbpo_config_m)
-    shutil.rmtree(m_dir, ignore_errors=True)
+    (mbpo_numbers, m_dir, m_learner), counts_m = counted(mbpo_config_m)
+    cleanup.callback(shutil.rmtree, m_dir, ignore_errors=True)
     print("config M mbpo.train: " + json.dumps(mbpo_numbers) + f"  launches {counts_m}", flush=True)
     check(counts_m == only_k3(mbpo_numbers["retrainings"] * 1),  # rollout length 1
           f"config M: expected launches {only_k3(mbpo_numbers['retrainings'])}, got {counts_m}")
@@ -2410,7 +2794,7 @@ def main(argv=None) -> int:
     print(f"config PN: num_episodes cut from {PN_PUBLISHED['num_episodes']} to {PN_EPISODES}, "
           f"dataset_size from {PN_PUBLISHED['dataset_size']} to {PN_DATASET_SIZE}", flush=True)
     (planet_numbers, pn_dir), counts_pn = counted(planet_config_pn)
-    shutil.rmtree(pn_dir, ignore_errors=True)
+    cleanup.callback(shutil.rmtree, pn_dir, ignore_errors=True)
     print("config PN planet.train: " + json.dumps(planet_numbers) + f"  launches {counts_pn}",
           flush=True)
     check(counts_pn == only_k3(0), f"config PN: expected no kernel launch, got {counts_pn}")
@@ -2439,22 +2823,67 @@ def main(argv=None) -> int:
     # config BE: pets.train with dynamics_model=basic_ensemble; no kernel
     # launch (its member forward is plain PyTorch under vmap, as the JAX
     # package's reaches no Pallas kernel); then card against CPU
-    print(f"config BE: num_steps cut from 5000 to {E_PLANNED_STEPS} planned steps", flush=True)
+    print(f"config BE: num_steps cut from 5000 to {BE_PLANNED_STEPS} planned steps", flush=True)
     (be_numbers, wrapper_be, state_be, be_dir), counts_be = counted(
-        lambda: pets_config_e(config=CONFIG_BE, label="BE"))
+        lambda: pets_config_e(planned_steps=BE_PLANNED_STEPS, config=CONFIG_BE, label="BE"))
     try:
         print("config BE pets.train: " + json.dumps(be_numbers) + f"  launches {counts_be}",
               flush=True)
         check(counts_be == only_k3(0), f"config BE: expected no kernel launch, got {counts_be}")
         from mbrl_tpu_torch.util.replay_buffer import ReplayBuffer
 
-        buffer = ReplayBuffer(E_PLANNED_STEPS, (OBS_E,), (ACT_E,), obs_type=np.double,
+        buffer = ReplayBuffer(BE_PLANNED_STEPS, (OBS_E,), (ACT_E,), obs_type=np.double,
                               action_type=np.double, reward_type=np.double)
         buffer.load(be_dir)
         be_check = basic_ensemble_card_vs_cpu(wrapper_be, state_be, buffer.get_all())
         print("config BE card vs CPU: " + json.dumps(be_check), flush=True)
     finally:
         shutil.rmtree(be_dir, ignore_errors=True)
+
+    # config DG: the run directories of E, M and PN reloaded through the
+    # diagnostics, load_agent, video and profiling hooks, then the tutorials.
+    # E's agents launch K2 at E's shape (75 a plan: two first acts, the warm
+    # and the traced acts, Visualizer's 2 plans, FineTuner's 200) and
+    # Visualizer's model rollouts K3 (one a step of its 15-step plans, at one
+    # row per elite); M, PN, the true-dynamics controller and two tutorials
+    # none; tutorial_pets K2 at its own shape, 75 a step
+    from mbrl_tpu_torch.util.profiling import StepTimer
+
+    print(f"config DG: FineTuner's steps_to_collect cut from {DG_FT_PUBLISHED['steps_to_collect']} "
+          f"to {DG_FT['steps_to_collect']} and num_epochs from {DG_FT_PUBLISHED['num_epochs']} to "
+          f"{DG_FT['num_epochs']}; tutorial_pets' num_steps from {DG_TUT_PUBLISHED} to "
+          f"{DG_TUT_STEPS}; the 1-D fit's epochs from {DG_FIT_PUBLISHED} to {DG_FIT_EPOCHS}",
+          flush=True)
+    timer = StepTimer()
+    t_dg = time.perf_counter()
+    dg = {}
+    dg["E"], counts_dg = counted(lambda: dg_config_e(e_dir, wrapper_e, state_e, timer))
+    print("config DG on E's run: " + json.dumps(dg["E"]) + f"  launches {counts_dg}", flush=True)
+    vis_plans = DG_VIS["num_steps"] // DG_VIS["lookahead"]
+    plans = 2 + DG_WARM_ACTS + 1 + vis_plans + DG_FT["steps_to_collect"]
+    want_dg = {"fused_rollout_returns": 0, k2: plans * 5 * 15,
+               k3: vis_plans * CONFIG_E["algorithm"]["agent"]["planning_horizon"]}
+    check(counts_dg == want_dg, f"config DG on E's run: expected launches {want_dg}, got {counts_dg}")
+    dg["M"], counts = counted(lambda: dg_config_m(m_dir, m_learner, timer))
+    print("config DG on M's run: " + json.dumps(dg["M"]) + f"  launches {counts}", flush=True)
+    check(counts == only_k3(0), f"config DG on M's run: expected no launch, got {counts}")
+    dg["PN"], counts = counted(lambda: dg_config_pn(pn_dir, timer))
+    print("config DG on PN's run: " + json.dumps(dg["PN"]) + f"  launches {counts}", flush=True)
+    check(counts == only_k3(0), f"config DG on PN's run: expected no launch, got {counts}")
+    dg["true_dynamics"], counts = counted(lambda: dg_true_dynamics(timer))
+    dg["tutorials"], counts_t = counted(lambda: dg_tutorials(timer))
+    print("config DG true dynamics and tutorials: " + json.dumps(
+        {k: dg[k] for k in ("true_dynamics", "tutorials")}) + f"  launches {counts}, {counts_t}",
+        flush=True)
+    check(counts == counts_t == only_k3(0), f"config DG: expected no launch, got {counts}, {counts_t}")
+    dg["tutorial_pets"], counts_tut = counted(lambda: dg_tutorial_pets(timer))
+    print("config DG tutorial_pets: " + json.dumps(dg["tutorial_pets"]) + f"  launches {counts_tut}",
+          flush=True)
+    want_tut = only_k2(dg["tutorial_pets"]["env_steps"] * 5 * 15)
+    check(counts_tut == want_tut, f"tutorial_pets: expected launches {want_tut}, got {counts_tut}")
+    dg_s = time.perf_counter() - t_dg
+    print(f"config DG phases ({dg_s:.1f} s):\n" + timer.report(), flush=True)
+    dg_summary = timer.summary()
 
     # K3 several times, each row checked and timed at the shape that its
     # launches had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout
@@ -2480,9 +2909,13 @@ def main(argv=None) -> int:
         "K1@W512": ("fused_rollout_returns", "bf16", counts_w["fused_rollout_returns"], wide_src["K1"]),
         "K2@W512": (k2, "f32", counts_w[k2], wide_src["K2"]),
         "K3@W512": (k3, "f32", counts_w[k3], wide_src["K3"]),
+        "K2@DG": (k2, "f32", counts_dg[k2], chain["K2"]),
+        "K3@DG": (k3, "f32", counts_dg[k3], chain["K3"]),
+        "K2@TUT": (k2, "f32", counts_tut[k2], chain["K2"]),
     }
-    for dt in ("f32", "bf16"):  # CL's K1 and K2 launch at A's and B's shapes
+    for dt in ("f32", "bf16"):  # CL's K1 and K2 launch at A's and B's shapes, DG's K2 at E's
         results[("K1@CL-A", dt)], results[("K2@CL-B", dt)] = results[("K1", dt)], results[("K2", dt)]
+        results[("K2@DG", dt)] = results[("K2@E", dt)]
     stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
     line = []
     for k, (wrapper, dtype, launches, src) in rows.items():
@@ -2530,6 +2963,15 @@ def main(argv=None) -> int:
                       "planet_PN": {k: planet_numbers[k] for k in (
                           "update_ms_median", "act_ms_median", "act_ms_p90",
                           "posterior_ms_median", "max_memory_allocated_gb", "total_s")},
+                      "diagnostics_DG": {
+                          "total_s": dg_s,
+                          "phase_s": {k: v["total_s"] for k, v in dg_summary.items()},
+                          "act_warm_ms_mean": dg_summary["act_warm"]["mean_ms"],
+                          "planet_visualizer_ms_per_step": dg_summary["planet_visualizer"]["total_s"]
+                          * 1e3 / DG_PV["lookahead"],
+                          "finetune_collect_and_train_s": dg_summary["finetune"]["total_s"],
+                          "tutorial_pets_ms_per_step": dg_summary["tutorial_pets"]["total_s"] * 1e3
+                          / dg["tutorial_pets"]["env_steps"]},
                       "build_s": build_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -12,8 +12,11 @@ replay buffer; on ``device`` run the ensemble's retraining, the imagined
 rollout (per step: a policy action, ``ModelEnv.step`` with ``sample=True``,
 which is kernel K3, and a masked write into the device SAC buffer; no host
 sync) and each environment step's bundle of SAC updates (batch indices drawn
-on the device). A ``parallel`` group other than ``none``, ``num_env_workers >
-0`` and ``save_video`` raise ``NotImplementedError``.
+on the device). A ``parallel`` group other than ``none`` and
+``num_env_workers > 0`` raise ``NotImplementedError``. With ``save_video``
+each epoch's first evaluation episode is recorded
+(``util.video.VideoRecorder``) into ``<work_dir>/video/<epoch>.mp4``, or
+``<epoch>.mp4.npz`` without ``imageio``.
 
 The environment is any object with ``observation_space.shape``,
 ``action_space.{low, high, shape, sample}``, ``reset`` and ``step``; an
@@ -43,6 +46,7 @@ from mbrl_tpu_torch.util.device_buffer import (
 )
 from mbrl_tpu_torch.util.logger import Logger
 from mbrl_tpu_torch.util.runlock import run_lock
+from mbrl_tpu_torch.util.video import VideoRecorder
 
 MBPO_LOG_FORMAT = mbrl_tpu_torch.constants.EVAL_LOG_FORMAT + [
     ("epoch", "E", "int"),
@@ -131,17 +135,22 @@ def maybe_replace_sac_buffer(
     return sac_buffer.resize(sac_buf_state, new_capacity)
 
 
-def evaluate(env, agent: SACAgent, num_episodes: int) -> float:
+def evaluate(env, agent: SACAgent, num_episodes: int, video_recorder=None) -> float:
     """Mean episode reward of the agent's mean actions; an episode ends when
-    the environment terminates or truncates it."""
+    the environment terminates or truncates it. A ``video_recorder`` records
+    the first episode's frames."""
     avg_episode_reward = 0.0
-    for _ in range(num_episodes):
+    for episode in range(num_episodes):
         obs, _ = env.reset()
+        if video_recorder is not None:
+            video_recorder.init(enabled=(episode == 0))
         terminated = truncated = False
         episode_reward = 0.0
         while not terminated and not truncated:
             action = agent.act(obs)
             obs, reward, terminated, truncated, _ = env.step(action)
+            if video_recorder is not None:
+                video_recorder.record(env)
             episode_reward += reward
         avg_episode_reward += episode_reward
     return avg_episode_reward / num_episodes
@@ -171,8 +180,6 @@ def _train_impl(
     device: DeviceLike = "cuda",
 ) -> np.float32:
     util_common.reject_unported_parallel(cfg)
-    if cfg.get("save_video", False):
-        raise NotImplementedError("save_video needs util/video.py, which the port does not have yet")
     device = resolve_device(device)
     debug_mode = cfg.get("debug_mode", False)
     obs_shape = env.observation_space.shape
@@ -213,6 +220,8 @@ def _train_impl(
         logger.register_group(
             mbrl_tpu_torch.constants.RESULTS_LOG_NAME, MBPO_LOG_FORMAT, color="green"
         )
+    # per-epoch evaluation videos (reference mbrl/algorithms/mbpo.py:137-147)
+    video_recorder = VideoRecorder(work_dir) if cfg.get("save_video", False) else None
 
     # ----------------- model + real buffer -----------------
     dynamics_model = create_one_dim_tr_model(cfg, obs_shape, act_shape, device=device)
@@ -423,7 +432,10 @@ def _train_impl(
 
             # --------------- epoch end: evaluate + checkpoint ---------------
             if _crosses(cfg.overrides.epoch_length):
-                avg_reward = evaluate(test_env, agent, cfg.algorithm.num_eval_episodes)
+                avg_reward = evaluate(test_env, agent, cfg.algorithm.num_eval_episodes,
+                                      video_recorder=video_recorder)
+                if video_recorder is not None:
+                    video_recorder.save(f"{epoch}.mp4")
                 if logger is not None:
                     logger.log_data(
                         mbrl_tpu_torch.constants.RESULTS_LOG_NAME,

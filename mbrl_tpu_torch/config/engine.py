@@ -136,6 +136,12 @@ def _load_yaml(path: pathlib.Path) -> Dict[str, Any]:
         return _coerce_numbers(yaml.safe_load(f) or {})
 
 
+def load_yaml_file(path: Union[str, pathlib.Path]) -> Config:
+    """One YAML file as a ``Config``, as it stands: no defaults list is
+    composed and no interpolation resolved (a run's saved ``config.yaml``)."""
+    return Config(_load_yaml(pathlib.Path(path)))
+
+
 def _merge(dst: Dict[str, Any], src: Mapping[str, Any]) -> Dict[str, Any]:
     for k, v in src.items():
         if isinstance(v, Mapping) and isinstance(dst.get(k), dict):

@@ -32,9 +32,18 @@ packages can be stepped from one mid-training state.
 ``w_hh`` (h, 3h), gates (r, z, n)), the prior, posterior and reward MLPs, and
 the tracked posterior. Both packages keep this layout, so the converter
 checks it and changes no array.
+
+:func:`load_jax_pickle` reads a pickle that the JAX package wrote (its
+``sac.pkl`` is a ``SACState`` dataclass holding optax states) without
+importing it: the JAX package's records come back as plain records with the
+same fields, optax's named tuples as named tuples of the same fields, numpy
+arrays as they are.
 """
 from __future__ import annotations
 
+import collections
+import pickle
+import types
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -44,6 +53,35 @@ from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.models.gaussian_mlp import as_dtype
 from mbrl_tpu_torch.ops.normalizer import NormalizerState
 from mbrl_tpu_torch.ops.tree import tree_map
+
+
+# optax's state named tuples that an optax.adam chain pickles, by module and name
+_OPTAX_TUPLES = {
+    ("optax._src.transform", "ScaleByAdamState"): ("count", "mu", "nu"),
+    ("optax._src.base", "EmptyState"): (),
+}
+
+
+class _JaxPickleReader(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        root = module.split(".")[0]
+        if (module, name) in _OPTAX_TUPLES:
+            return collections.namedtuple(name, _OPTAX_TUPLES[(module, name)])
+        if root == "mbrl_tpu":
+            # a record of the JAX package (a dataclass): its fields become attributes
+            return type(name, (types.SimpleNamespace,), {"__module__": __name__})
+        if root in ("jax", "jaxlib", "flax", "optax"):
+            raise pickle.UnpicklingError(
+                f"{module}.{name} in a JAX pickle: only numpy leaves, the JAX package's "
+                "records and optax's Adam states are read without JAX")
+        return super().find_class(module, name)
+
+
+def load_jax_pickle(path) -> Any:
+    """A pickle of the JAX package's (or of this package's, which holds only
+    numpy arrays and builtins), read without importing JAX or ``mbrl_tpu``."""
+    with open(path, "rb") as f:
+        return _JaxPickleReader(f).load()
 
 
 def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:

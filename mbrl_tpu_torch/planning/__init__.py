@@ -1,6 +1,6 @@
 """Agents and trajectory optimizers."""
 from mbrl_tpu_torch.planning.closed_loop import ClosedLoopDriver
-from mbrl_tpu_torch.planning.core import Agent, RandomAgent
+from mbrl_tpu_torch.planning.core import Agent, RandomAgent, load_agent
 from mbrl_tpu_torch.planning.linear_feedback import PIDAgent
 from mbrl_tpu_torch.planning.sac import SAC, SACAgent
 from mbrl_tpu_torch.planning.trajectory_opt import (
@@ -27,4 +27,5 @@ __all__ = [
     "TrajectoryOptimizer",
     "TrajectoryOptimizerAgent",
     "create_trajectory_optim_agent_for_model",
+    "load_agent",
 ]

@@ -358,8 +358,15 @@ class SAC:
             pickle.dump(self.state_to_host(state), f)
 
     def load_checkpoint(self, ckpt_path) -> SACState:
-        with open(ckpt_path, "rb") as f:
-            return self.state_from_host(pickle.load(f))
+        """A checkpoint that :meth:`save_checkpoint` wrote, or the ``sac.pkl``
+        of the JAX package's SAC (carried across by
+        :func:`mbrl_tpu_torch.convert.convert_sac_state`, Adam moments included)."""
+        from mbrl_tpu_torch.convert import convert_sac_state, load_jax_pickle
+
+        host = load_jax_pickle(ckpt_path)
+        if isinstance(host, dict):
+            return self.state_from_host(host)
+        return convert_sac_state(self, host)
 
     def load_torch_checkpoint(self, ckpt_path) -> SACState:
         """A reference-format checkpoint (``{policy,critic,critic_target}_state_dict``

@@ -73,17 +73,27 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
     the agent and the cartpole of config E are made from it, and config M's
     capped cartpole and a SAC learner, config PN's PlaNet model and pixel
     stand-in (with ``dm_control`` unimportable too), and config BE's
-    BasicEnsemble."""
+    BasicEnsemble. Nor has it ``matplotlib``, ``pandas``, ``imageio`` or
+    ``huggingface_hub``: the diagnostics, the packaging and the tutorials
+    import with those blocked too, and a video is saved as ``.npz``."""
     mods = _chip_smoke_imports()
     assert "mbrl_tpu_torch.algorithms.pets" in mods or "mbrl_tpu_torch.algorithms" in mods
     code = (
         "import sys, importlib, importlib.abc\n"
         "BLOCKED = ('gymnasium', 'gym', 'yaml', 'jax', 'jaxlib', 'flax', 'optax', 'mbrl_tpu',\n"
-        "           'dm_control')\n"
-        "class Block(importlib.abc.MetaPathFinder):\n"
+        "           'dm_control', 'matplotlib', 'pandas', 'imageio', 'huggingface_hub')\n"
+        # a blocked package has no location (importlib.util.find_spec, which
+        # torch's compiler probes optional packages with, finds no origin) and
+        # importing it raises ModuleNotFoundError
+        "import importlib.machinery\n"
+        "class Block(importlib.abc.MetaPathFinder, importlib.abc.Loader):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"
-        "            raise ModuleNotFoundError(f'{name} is blocked in this test', name=name)\n"
+        "            return importlib.machinery.ModuleSpec(name, self)\n"
+        "    def create_module(self, spec):\n"
+        "        raise ModuleNotFoundError(f'{spec.name} is blocked in this test', name=spec.name)\n"
+        "    def exec_module(self, module):\n"
+        "        pass\n"
         "sys.meta_path.insert(0, Block())\n"
         "import chip_smoke\n"
         f"mods = {mods!r}\n"
@@ -119,6 +129,15 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
         "env_pn.step(env_pn.action_space.sample())\n"
         "be = create_one_dim_tr_model(Config(copy.deepcopy(chip_smoke.CONFIG_BE)), (4,), (1,), device='cpu')\n"
         "assert type(be.model).__name__ == 'BasicEnsemble' and len(be) == 5\n"
+        "from mbrl_tpu_torch.diagnostics import DatasetEvaluator, FineTuner, PlanetVisualizer, Visualizer\n"
+        "import mbrl_tpu_torch.diagnostics.control_env, mbrl_tpu_torch.diagnostics.training_browser\n"
+        "import mbrl_tpu_torch.util.huggingface, mbrl_tpu_torch.util.profiling, tempfile, pathlib\n"
+        "from mbrl_tpu_torch.examples import tutorial_cem_rosenbrock, tutorial_fit_ensemble_1d, tutorial_pets\n"
+        "from mbrl_tpu_torch.util.video import VideoRecorder\n"
+        "video_env = chip_smoke.RenderedCartpole(chip_smoke.seeded_cartpole())\n"
+        "video_env.reset(seed=0)\n"
+        "rec = VideoRecorder(tempfile.mkdtemp()); rec.init(); rec.record(video_env); rec.save('0.mp4')\n"
+        "assert [p.name for p in rec.save_dir.iterdir()] == ['0.mp4.npz']\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "print(count, len(model), type(agent).__name__); print(bad)\n"
     )
@@ -171,13 +190,16 @@ def test_preprocess_fn_imports_without_gymnasium(module, cls):
 
 def test_yaml_is_imported_only_where_yaml_text_is_parsed():
     """``import yaml`` sits inside functions of config/engine.py, never at the
-    top of a module of the port."""
+    top of a module of the port; nor do ``gymnasium``, ``optax`` and the
+    drawing, writing and hub packages the diagnostics use (``matplotlib``,
+    ``pandas``, ``imageio``, ``huggingface_hub``)."""
     for path in PORT_FILES:
         for node in ast.parse(path.read_text()).body:
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
                 [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
             for name in names:
-                assert name.split(".")[0] not in ("yaml", "gymnasium", "optax"), (path, name)
+                assert name.split(".")[0] not in ("yaml", "gymnasium", "optax", "matplotlib",
+                                                  "pandas", "imageio", "huggingface_hub"), (path, name)
 
 
 def test_dm_control_is_imported_only_when_an_environment_is_made():

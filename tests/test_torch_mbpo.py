@@ -258,11 +258,6 @@ def test_small_train_finishes_and_resumes(tmp_path, monkeypatch, algorithm):
 
 def test_unported_options_raise(tmp_path):
     cfg = _small_cfg()
-    cfg["save_video"] = True
-    with pytest.raises(NotImplementedError, match="video"):
-        mbpo.train(MockLineEnv(), MockLineEnv(), _mock_term_fn, cfg, work_dir=str(tmp_path),
-                   device="cpu")
-    cfg = _small_cfg()
     cfg.overrides["num_env_workers"] = 2
     with pytest.raises(NotImplementedError, match="num_env_workers"):
         mbpo.train(MockLineEnv(), MockLineEnv(), _mock_term_fn, cfg, work_dir=str(tmp_path),
