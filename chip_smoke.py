@@ -93,6 +93,28 @@ with random weights from a seed:
      ``steps_to_collect`` 10,000 -> 200 and ``num_epochs`` 50 -> 5,
      ``tutorial_pets``' ``num_steps`` 2,000 -> 400, the 1-D fit's epochs
      500 -> 200
+  POOL-E  config E's ``pets.train`` over a pool of 4 ``forkserver`` workers of
+     the port's cartpole (``overrides.num_env_workers``): every batched step
+     plans for each worker through ``act(batched=True)`` (K2 at E's shape, 75
+     a plan). The cuts: ``num_steps`` 400 (100 batched steps) after E's
+     exploration, ``trial_length`` 200 -> 100; no worker may initialise CUDA
+  POOL-M  config M's ``mbpo.train`` over 4 workers: one ``SACAgent.act`` for
+     the pool each batched step, K3 at 80,000 rows once a retraining. The
+     cut: ``num_steps`` 400 (two epochs, 100 batched steps)
+  MESH-1  ``parallel=mesh`` on the one card (a 1 x 1 mesh, no process group):
+     E's retraining and first plan, an imagined rollout of M's 80,000 rows and
+     a training epoch at M's width, one PlaNet update at ``planet.yaml``'s
+     width, each equal (``torch.equal``) to the unsharded run, with equal
+     launches
+  MH  ``parallel.run_multihost_dryrun(2)``: two processes on this card under
+     gloo (``psum=2``) take one training step at E's width with each member's
+     256 rows split over the two ranks, held against the one-process step in
+     full float32 (rtol 1e-5, atol 1e-6), and one ``train_device`` epoch
+     (rtol 1e-4, atol 1e-5); they evaluate E's 350 x 20 particles 5 times on
+     the fast path, each rank 75 K2 launches on its 175 sequences, the
+     gathered returns equal on both ranks and in statistical agreement with
+     one process's; and once on the generic path, 15 K3 launches a rank,
+     equal to one process's (rtol 1e-5, atol 1e-6)
 
 and checks that each config's launches went through its kernel, that the
 rollout on the card agrees with the plain CPU path on an identical-member
@@ -1866,9 +1888,9 @@ def _planet_config_pn(device, config, work_dir):
     starts, calls, metas = [], [], []
     loss = ModelTrainer._loss
 
-    def timed_loss(self, work, batch, generator):
+    def timed_loss(self, work, batch, generator, **kw):
         starts.append(_stamp(device))
-        out = loss(self, work, batch, generator)
+        out = loss(self, work, batch, generator, **kw)
         metas.append({k: v.detach() for k, v in out[1].items()})
         return out
 
@@ -2588,6 +2610,468 @@ def dg_tutorial_pets(timer, device: str = "cuda"):
             "env_steps": env_steps, "episode_rewards": rewards, "best_episode_reward": float(best)}
 
 
+# --------------------------------------------------------------------------- #
+# POOL-E and POOL-M: the batched loops over a pool of worker processes
+# --------------------------------------------------------------------------- #
+POOL_WORKERS = 4
+# POOL-E: E's run over the pool; 100 batched steps after the exploration, and
+# trial_length cut from 200 to 100 so that every worker ends an episode
+POOL_E_STEPS, POOL_E_TRIAL = 400, 100
+# POOL-M: M's run over the pool, two epochs of 200 environment steps (two
+# retrainings; SAC updates from the first one on)
+POOL_M_STEPS = 400
+
+
+class PoolRecorder:
+    """Stands in for ``distributed_collect.maybe_make_collector``: keeps the
+    collector it makes, the host time at which each batched step returned and,
+    as the pool closes, the workers' own report."""
+
+    def __init__(self, module):
+        self.orig = module.maybe_make_collector
+        self.step_times, self.info, self.collector = [], None, None
+
+    def __call__(self, cfg, seed=0):
+        col = self.orig(cfg, seed=seed)
+        if col is None:
+            return None
+        self.collector = col
+        step, close = col.step, col.close
+
+        def timed_step(actions):
+            out = step(actions)
+            self.step_times.append(time.perf_counter())
+            return out
+
+        def closing():
+            self.info = col.pool.worker_info()
+            close()
+
+        col.step, col.close = timed_step, closing
+        return col
+
+    def workers(self) -> dict:
+        check(self.info is not None and len(self.info) == POOL_WORKERS,
+              f"the pool reported {self.info}")
+        check(not any(i["cuda_initialized"] for i in self.info),
+              f"a pool worker initialised CUDA: {self.info}")
+        return {"workers": len(self.info), "pids": [i["pid"] for i in self.info],
+                "cuda_initialized": [i["cuda_initialized"] for i in self.info],
+                "torch_imported": ["torch" in i["packages"] for i in self.info]}
+
+
+def pool_config_e(device: str = "cuda", config=None):
+    """``pets.train`` with ``CONFIG_E`` (or ``config``) over a pool of
+    ``POOL_WORKERS`` forkserver workers of the port's cartpole
+    (``overrides.num_env_workers``): every batched step plans for each worker
+    through ``act(batched=True)``. Returns the run's numbers."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from mbrl_tpu_torch.algorithms import pets
+    from mbrl_tpu_torch.config import Config
+    from mbrl_tpu_torch.envs import reward_fns, termination_fns
+    from mbrl_tpu_torch.parallel import distributed_collect
+
+    cfg = Config(copy.deepcopy(CONFIG_E if config is None else config))
+    cfg.overrides["num_steps"] = POOL_E_STEPS
+    cfg.overrides["trial_length"] = POOL_E_TRIAL
+    cfg.overrides["num_env_workers"] = POOL_WORKERS
+    freq = cfg.algorithm.freq_train_model
+    rec = PoolRecorder(distributed_collect)
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_pool_e_")
+    try:
+        with mock.patch.object(distributed_collect, "maybe_make_collector", rec), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            best = pets.train(seeded_cartpole(), termination_fns.cartpole, reward_fns.cartpole,
+                              cfg, silent=False, work_dir=work_dir, device=device)
+            total_s = time.perf_counter() - t0
+        log = read_csv(pathlib.Path(work_dir) / "results.csv")
+        train_log = read_csv(pathlib.Path(work_dir) / "model_train.csv")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    steps = len(rec.step_times)
+    check(steps == POOL_E_STEPS // POOL_WORKERS, f"POOL-E: {steps} batched steps")
+    # a retraining runs before the step at which env_steps crosses the cadence
+    env_steps = np.arange(steps) * POOL_WORKERS
+    retrains = (env_steps == 0) | (env_steps // freq != (env_steps + POOL_WORKERS) // freq)
+    gaps = np.diff(np.asarray(rec.step_times)) * 1e3  # gap k: before step k + 1
+    plain = gaps[~retrains[1:]]
+    check(len(set(np.asarray(train_log["train_iteration"], int))) == int(retrains.sum()),
+          f"POOL-E: {len(set(train_log['train_iteration']))} retrainings logged, "
+          f"{int(retrains.sum())} cadence crossings")
+    episodes = log["episode_reward"] if log else []
+    check(len(episodes) >= POOL_WORKERS and bool(np.isfinite(episodes).all()),
+          f"POOL-E: {len(episodes)} episodes logged")
+    return {
+        "workers": POOL_WORKERS, "num_steps": POOL_E_STEPS, "trial_length": POOL_E_TRIAL,
+        "batched_steps": steps, "retrainings": int(retrains.sum()),
+        "episodes": len(episodes), "episode_rewards": [float(r) for r in episodes],
+        "episode_env_steps": [int(s) for s in log["env_step"]] if log else [],
+        "best_episode_reward": float(best), "total_s": total_s,
+        "batched_step_ms_median": float(np.median(plain)),
+        "batched_step_ms_p90": float(np.percentile(plain, 90)),
+        "env_step_ms_median": float(np.median(plain)) / POOL_WORKERS,
+        "retrain_step_ms_median": float(np.median(gaps[retrains[1:]])),
+        **rec.workers(),
+    }
+
+
+def pool_config_m(device: str = "cuda", config=None):
+    """``mbpo.train`` with ``CONFIG_M`` (or ``config``) over a pool of
+    ``POOL_WORKERS`` workers of the port's capped cartpole: one
+    ``SACAgent.act(batched=True)`` per batched step, ``env_steps`` advancing by
+    the pool's width, ``POOL_M_STEPS`` steps after M's exploration. Returns
+    the run's numbers."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from mbrl_tpu_torch.algorithms import mbpo
+    from mbrl_tpu_torch.config import Config
+    from mbrl_tpu_torch.parallel import distributed_collect
+    from mbrl_tpu_torch.planning.sac import SAC
+    from mbrl_tpu_torch.util.env import make_env
+
+    cfg = Config(copy.deepcopy(CONFIG_M if config is None else config))
+    cfg.overrides["num_steps"] = POOL_M_STEPS
+    cfg.overrides["num_env_workers"] = POOL_WORKERS
+    env, term_fn, _ = make_env(cfg)
+    test_env, _, _ = make_env(cfg)
+    env, _ = seeded_cartpole(env), seeded_cartpole(test_env)
+    freq = cfg.overrides.freq_train_model
+    rec = PoolRecorder(distributed_collect)
+    bundles = _Timed(SAC, "update_from_buffer", device)
+    bundle = lambda self, *a, **kw: bundles(self, *a, **kw)  # noqa: E731
+    rollouts = _Timed(mbpo, "imagined_rollout", device)
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_pool_m_")
+    try:
+        with mock.patch.object(distributed_collect, "maybe_make_collector", rec), \
+                mock.patch.object(SAC, "update_from_buffer", bundle), \
+                mock.patch.object(mbpo, "imagined_rollout", rollouts), \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            best = mbpo.train(env, test_env, term_fn, cfg, silent=False, work_dir=work_dir,
+                              device=device)
+            total_s = time.perf_counter() - t0
+        log = read_csv(pathlib.Path(work_dir) / "results.csv")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    steps = len(rec.step_times)
+    check(steps == POOL_M_STEPS // POOL_WORKERS, f"POOL-M: {steps} batched steps")
+    retrainings = POOL_M_STEPS // freq
+    check(len(rollouts.calls) == retrainings, f"POOL-M: {len(rollouts.calls)} imagined rollouts")
+    check(len(log["episode_reward"]) == POOL_M_STEPS // cfg.overrides.epoch_length
+          and bool(np.isfinite(log["episode_reward"]).all()), f"POOL-M: evaluations {log}")
+    # the step after the first rollout on: a bundle of SAC updates each
+    env_steps = np.arange(steps) * POOL_WORKERS
+    crosses = lambda f: (env_steps + POOL_WORKERS) // f > env_steps // f  # noqa: E731
+    first = int(np.flatnonzero(crosses(freq))[0])
+    check(len(bundles.calls) == steps - first, f"POOL-M: {len(bundles.calls)} update bundles")
+    gaps = np.diff(np.asarray(rec.step_times)) * 1e3  # gap k: after step k, before k + 1
+    quiet = ~(crosses(freq) | crosses(cfg.overrides.epoch_length))[:-1]
+    learning = quiet & (np.arange(steps - 1) >= first)
+    bundle_ms = [c[0] for c in bundles.calls]
+    n_updates = cfg.overrides.num_sac_updates_per_step
+    return {
+        "workers": POOL_WORKERS, "num_steps": POOL_M_STEPS, "batched_steps": steps,
+        "retrainings": retrainings, "total_s": total_s, "best_eval_reward": float(best),
+        "eval_rewards": log["episode_reward"],
+        "rollout_ms": [c[0] for c in rollouts.calls],
+        "batched_step_ms_median": float(np.median(gaps[learning])),
+        "env_step_ms_median": float(np.median(gaps[learning])) / POOL_WORKERS,
+        "batched_step_ms_before_learning": float(np.median(gaps[quiet & ~learning])),
+        "sac_updates": len(bundle_ms) * n_updates,
+        "sac_bundle_ms_median": float(np.median(bundle_ms)),
+        "sac_updates_per_s": n_updates / (float(np.median(bundle_ms)) / 1e3),
+        **rec.workers(),
+    }
+
+
+# --------------------------------------------------------------------------- #
+# MESH-1 and MH: the mesh on the one card, and two processes on it
+# --------------------------------------------------------------------------- #
+MH_ROWS = 256  # E's model_batch_size: 128 rows a rank
+MH_KEYS = 5  # evaluations of E's particles in MH: E's CEM iterations, 75 K2 launches a rank
+
+
+def _trees_equal(a, b) -> bool:
+    from mbrl_tpu_torch.ops.tree import tree_leaves_with_path
+
+    la, lb = list(tree_leaves_with_path(a)), list(tree_leaves_with_path(b))
+    return len(la) == len(lb) and all(
+        pa == pb and (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        for (pa, x), (pb, y) in zip(la, lb))
+
+
+def mesh_one(device: str = "cuda", config_e=None, config_m=None, config_pn=None) -> dict:
+    """``parallel=mesh`` on one process: E's first plan and a retraining, an
+    imagined rollout at M's 80,000 rows and a training epoch at M's width,
+    and one PlaNet update at PN's width (or at the sizes of the configs
+    given), each with the one-process mesh's context and without: equal
+    tensors (``torch.equal``) and equal launches."""
+    import types
+
+    from mbrl_tpu_torch.algorithms import mbpo
+    from mbrl_tpu_torch.config import Config, complete_agent_cfg, create_one_dim_tr_model, instantiate
+    from mbrl_tpu_torch.envs import reward_fns, termination_fns
+    from mbrl_tpu_torch.models import ModelEnv, ModelTrainer, PlaNetModel
+    from mbrl_tpu_torch.ops import kernels as K
+    from mbrl_tpu_torch.parallel import make_parallel_context
+    from mbrl_tpu_torch.planning import RandomAgent, create_trajectory_optim_agent_for_model
+    from mbrl_tpu_torch.planning.sac import SAC
+    from mbrl_tpu_torch.types import TransitionBatch
+    from mbrl_tpu_torch.util import common as util_common
+    from mbrl_tpu_torch.util.device_buffer import DeviceReplayBuffer, DeviceTransitionDataset
+    from mbrl_tpu_torch.util.replay_buffer import ReplayBuffer
+
+    pctx = make_parallel_context({"parallel": {"enable": True}})
+    check(pctx.mesh.size == 1 and not torch.distributed.is_initialized(),
+          f"MESH-1: the one-process mesh is {pctx.mesh}")
+    out = {"mesh": dict(pctx.mesh.shape)}
+
+    def both(run, what):
+        """run(pctx or None) twice, counted; equal results and launches."""
+        got = []
+        for ctx in (None, pctx):
+            K.reset_launch_counts()
+            result = run(ctx)
+            got.append((result, K.launch_counts()))
+        (a, ca), (b, cb) = got
+        check(ca == cb, f"MESH-1 {what}: launches {ca} unsharded, {cb} on the mesh")
+        check(_trees_equal(a, b), f"MESH-1 {what}: the mesh's result differs")
+        out[what] = {"launches": ca}
+
+    # E: a buffer of E's exploration, a retraining, then the first plan
+    cfg = Config(copy.deepcopy(CONFIG_E if config_e is None else config_e))
+    env = seeded_cartpole()
+    buffer = ReplayBuffer(1000, (OBS_E,), (ACT_E,), obs_type=np.double, action_type=np.double,
+                          reward_type=np.double, rng=np.random.default_rng(SEED))
+    util_common.rollout_agent_trajectories(env, cfg.algorithm.initial_exploration_steps,
+                                           RandomAgent(env), {}, replay_buffer=buffer)
+    wrapper = create_one_dim_tr_model(cfg, (OBS_E,), (ACT_E,), device=device)
+    state = wrapper.update_normalizer_host(wrapper.init(torch.Generator().manual_seed(SEED)),
+                                           buffer.get_all())
+    dataset = DeviceTransitionDataset(OBS_E, ACT_E, device=device)
+    dataset.sync_from(buffer)
+    ov = cfg.overrides
+
+    def retrain_e(ctx):
+        trainer = ModelTrainer(wrapper, optim_lr=ov.model_lr, weight_decay=ov.model_wd,
+                               parallel_ctx=ctx)
+        new, losses, vals = trainer.train_device(
+            state, dataset, batch_size=ov.model_batch_size, val_ratio=ov.validation_ratio,
+            num_epochs=ov.num_epochs_train_model, patience=ov.patience)
+        return {"state": new, "losses": losses, "vals": vals}
+
+    both(retrain_e, "E_retraining")
+    trained = retrain_e(None)["state"]
+    obs0 = env.reset(seed=SEED + 50)[0]
+
+    def plan_e(ctx):
+        model_env = ModelEnv(wrapper, termination_fns.cartpole, reward_fns.cartpole,
+                             particle_sharding=ctx.particle_sharding() if ctx else None)
+        agent = instantiate(complete_agent_cfg(env, cfg.algorithm.agent, device=device), seed=SEED + 1)
+        agent = create_trajectory_optim_agent_for_model(model_env, agent,
+                                                        num_particles=cfg.algorithm.num_particles)
+        agent.set_eval_state(trained)
+        return {"action": torch.as_tensor(agent.act(obs0))}
+
+    both(plan_e, "E_first_plan")
+    check(out["E_first_plan"]["launches"]["fused_ensemble_mlp_gaussian"] == 75 * (device == "cuda"),
+          f"MESH-1: E's plan launched {out['E_first_plan']['launches']}")
+
+    # M: one imagined rollout of 80,000 rows (K3) and one training epoch
+    cfg_m = Config(copy.deepcopy(CONFIG_M if config_m is None else config_m))
+    wrapper_m = create_one_dim_tr_model(cfg_m, (OBS_M,), (ACT_M,), device=device)
+    # M's five elites, as its retrainings pick them: 80,000 rows shard over them (K3)
+    state_m = wrapper_m.set_elite(wrapper_m.update_normalizer_host(
+        wrapper_m.init(torch.Generator().manual_seed(SEED + 60)), buffer.get_all()),
+        list(range(ELITES)))
+    om = cfg_m.overrides
+    sac = SAC(num_inputs=OBS_M, action_space=env.action_space, hidden_size=om.sac_hidden_size,
+              device=device)
+    sac_state = sac.init(torch.Generator().manual_seed(SEED + 61))
+    rows = om.effective_model_rollouts_per_step * om.freq_train_model
+    init_obs = torch.as_tensor(buffer.sample(rows).obs, dtype=torch.float32, device=device)
+
+    def rollout_m(ctx):
+        model_env = ModelEnv(wrapper_m, termination_fns.cartpole, None,
+                             particle_sharding=ctx.particle_sharding() if ctx else None)
+        sac_buffer = DeviceReplayBuffer(rows, OBS_M, ACT_M, device=device)
+        buf = mbpo.imagined_rollout(model_env, state_m, sac, sac_state.policy, sac_buffer,
+                                    sac_buffer.init(), init_obs,
+                                    torch.Generator(device=device).manual_seed(SEED + 62), 1,
+                                    cfg_m.algorithm.sac_samples_action)
+        return {"rows": buf.arrays(), "stored": torch.as_tensor(int(buf.num_stored))}
+
+    both(rollout_m, "M_rollout")
+    check(out["M_rollout"]["launches"]["fused_ensemble_mlp"] == (device == "cuda"),
+          f"MESH-1: M's rollout launched {out['M_rollout']['launches']}")
+
+    def train_m(ctx):
+        trainer = ModelTrainer(wrapper_m, optim_lr=om.model_lr, weight_decay=om.model_wd,
+                               parallel_ctx=ctx)
+        new, losses, vals = trainer.train_device(
+            state_m, dataset, batch_size=om.model_batch_size, val_ratio=om.validation_ratio,
+            num_epochs=1)
+        return {"state": new, "losses": losses, "vals": vals}
+
+    both(train_m, "M_training_epoch")
+
+    # PN: one update of 50 windows of 50 steps at planet.yaml's width
+    config_pn = CONFIG_PN if config_pn is None else config_pn
+    kw = {k: v for k, v in config_pn["dynamics_model"].items() if k != "_target_"}
+    kw["action_size"] = ACT_PN
+    planet = PlaNetModel(**kw, device=device)
+    pn_state = planet.init(torch.Generator().manual_seed(SEED + 70))
+    rng = np.random.default_rng(SEED + 71)
+    n = 200
+    obs = torch.as_tensor(rng.integers(0, 256, (n, *kw["obs_shape"])).astype(np.uint8), device=device)
+    act = torch.as_tensor(rng.uniform(-1, 1, (n, ACT_PN)).astype(np.float32), device=device)
+    rew = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    flags = torch.zeros(n, dtype=torch.bool, device=device)
+    pn_data = types.SimpleNamespace(data=TransitionBatch(obs, act, obs, rew, flags, flags),
+                                    device=torch.device(device))
+    pn = config_pn["overrides"]
+
+    def update_pn(ctx):
+        trainer = ModelTrainer(planet, optim_lr=1e-3, optim_eps=1e-4, parallel_ctx=ctx)
+        new, losses = trainer.train_device_sequences(
+            pn_state, pn_data, np.arange(n - pn["sequence_length"] + 1), num_updates=1,
+            batch_size=pn["batch_size"], seq_len=pn["sequence_length"],
+            generator=torch.Generator().manual_seed(SEED + 72))
+        return {"params": new["params"], "losses": losses}
+
+    # cuDNN's convolution backward may sum in another order from one call to
+    # the next: the two updates are compared with its deterministic algorithms
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        both(update_pn, "PN_update")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    return out
+
+
+def multihost_config_mh(device: str = "cuda") -> dict:
+    """``run_multihost_dryrun(2)`` with both ranks on this card under gloo,
+    ``model_axis_size=1`` (E's 7 members whole on each rank): ``psum=2``;
+    one training step at E's width with the ``MH_ROWS`` rows of each member
+    split over the two ranks, and one ``train_device`` epoch at E's batch
+    size, each against the one-process call on the card in full float32;
+    ``MH_KEYS`` evaluations of E's 350 x 20 particles on the fast path, each
+    rank K2 on its block of 175 sequences (``MH_KEYS`` x 15 launches a rank),
+    the two ranks' gathered returns equal and in statistical agreement with
+    the one-process evaluations; one evaluation on the generic path (each
+    rank K3 on its block of the elites, one launch a step), equal to the
+    one-process one."""
+    from mbrl_tpu_torch.device import full_float32
+    from mbrl_tpu_torch.envs import reward_fns, termination_fns
+    from mbrl_tpu_torch.models import ModelTrainer
+    from mbrl_tpu_torch.ops.tree import tree_leaves_with_path
+    from mbrl_tpu_torch.parallel import multihost
+    from mbrl_tpu_torch.types import TransitionBatch
+
+    e, ov = CONFIG_E["dynamics_model"], CONFIG_E["overrides"]
+    rng = np.random.default_rng(SEED + 80)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    m, horizon = e["ensemble_size"], ov["planning_horizon"]
+    plan = {"sequences": rng.uniform(-1, 1, (POP_E, horizon, ACT_E)).astype(np.float32),
+            "initial_obs": (0.05 * f(OBS_E)), "num_particles": CONFIG_E["algorithm"]["num_particles"],
+            "seed": SEED + 81, "fast_rollout": True, "keys": MH_KEYS,
+            "reward_fn": reward_fns.cartpole, "termination_fn": termination_fns.cartpole}
+    case = {
+        "model": dict(in_size=OBS_E + ACT_E, out_size=OBS_E, num_layers=e["num_layers"],
+                      ensemble_size=m, hid_size=e["hid_size"], activation=e["activation"],
+                      propagation_method=e["propagation_method"]),
+        "wrapper": dict(target_is_delta=True, normalize=True, learned_rewards=False),
+        "state": None,
+        "batch": (f(m, MH_ROWS, OBS_E), f(m, MH_ROWS, ACT_E), f(m, MH_ROWS, OBS_E),
+                  f(m, MH_ROWS, 1), np.zeros((m, MH_ROWS, 1), bool), np.zeros((m, MH_ROWS, 1), bool)),
+        "model_axis_size": 1,
+        "train": {"batch_size": ov["model_batch_size"], "val_ratio": ov["validation_ratio"],
+                  "epochs": 1, "seed": SEED + 82},
+        "plan": plan,
+        "plan_generic": {**plan, "fast_rollout": False, "keys": 1},
+    }
+    t0 = time.perf_counter()
+    ranks = multihost.run_multihost_dryrun(2, device=device, case=case)  # checks psum=2
+    dryrun_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    wrapper, state = multihost._build(case, dev)
+    trainer = ModelTrainer(wrapper)
+    with full_float32():
+        loss, grads = trainer.loss_and_grads(state, TransitionBatch(*case["batch"]))
+    loss = float(loss)
+    new, losses, vals = multihost.train_on_batch(trainer, state, case["batch"], case["train"], dev)
+    params = {"/".join(map(str, k)): v.cpu().numpy() for k, v in tree_leaves_with_path(new["params"])}
+    one = multihost.sharded_plan(wrapper, state, plan, None)
+    one_generic = multihost.sharded_plan(wrapper, state, case["plan_generic"], None)
+    err = {"loss": max(abs(r["loss"] - loss) / abs(loss) for r in ranks)}
+    worst = {"grad": 0.0, "train_param": 0.0, "generic_value": 0.0}
+    k2, k3 = "fused_ensemble_mlp_gaussian", "fused_ensemble_mlp"
+    for r in ranks:
+        check(r["mesh"] == {"model": 1, "data": 2}, f"MH: mesh {r['mesh']}")
+        check(r["grads"].keys() == {"/".join(map(str, k)) for k in grads}, "MH: gradient leaves")
+        for k, g in grads.items():
+            got, ref = r["grads"]["/".join(map(str, k))], g.cpu().numpy()
+            check(bool(np.allclose(got, ref, rtol=1e-5, atol=1e-6)),
+                  f"MH: gradient {k} off by {float(np.abs(got - ref).max())}")
+            worst["grad"] = max(worst["grad"], float(np.abs(got - ref).max()))
+        check(bool(np.allclose(r["train_losses"], losses, rtol=1e-5)
+                   and np.allclose(r["train_vals"], vals, rtol=1e-5)),
+              f"MH: train_device losses {r['train_losses']} / {losses}, scores "
+              f"{r['train_vals']} / {vals}")
+        check(r["train_params"].keys() == params.keys(), "MH: train_device leaves")
+        for k, v in params.items():
+            check(bool(np.allclose(r["train_params"][k], v, rtol=1e-4, atol=1e-5)),
+                  f"MH: train_device param {k} off by {float(np.abs(r['train_params'][k] - v).max())}")
+            worst["train_param"] = max(worst["train_param"],
+                                       float(np.abs(r["train_params"][k] - v).max()))
+        if dev.type == "cuda":  # the plain versions on the CPU count no launch
+            check(r["plan_launches"][k2] == MH_KEYS * horizon and r["plan_launches"][k3] == 0,
+                  f"MH: a rank's fast-path launches {r['plan_launches']}, expected "
+                  f"{MH_KEYS * horizon} K2")
+            check(r["plan_generic_launches"][k3] == horizon
+                  and r["plan_generic_launches"][k2] == 0,
+                  f"MH: a rank's generic-path launches {r['plan_generic_launches']}, expected "
+                  f"{horizon} K3")
+        gen = float(np.abs(r["plan_generic_values"] - one_generic["values"]).max())
+        check(bool(np.allclose(r["plan_generic_values"], one_generic["values"], rtol=1e-5,
+                               atol=1e-6)), f"MH: generic-path values off by {gen}")
+        worst["generic_value"] = max(worst["generic_value"], gen)
+    check(err["loss"] <= 1e-5, f"MH: the two-rank loss is {err['loss']} off the one-process loss")
+    check(dev.type != "cuda" or one["launches"][k2] == MH_KEYS * horizon,
+          f"MH: one-process launches {one['launches']}")
+    sharded, plain = ranks[0]["plan_values"], one["values"]
+    check(bool(np.array_equal(sharded, ranks[1]["plan_values"])),
+          "MH: the two ranks' gathered returns differ")
+    check(bool(np.isfinite(sharded).all()) and sharded.shape == (MH_KEYS, POP_E),
+          f"MH: sharded returns {sharded.shape}")
+    # statistical agreement (tests/test_fast_rollout.py's method): every
+    # (key, sequence) pair's difference has mean 0 within 5 standard errors,
+    # and the spread over keys is not inflated
+    diff = (sharded - plain).reshape(-1)
+    z = float(diff.mean() / (diff.std() / np.sqrt(diff.size) + 1e-12))
+    var_s, var_p = float(sharded.var(0, ddof=1).mean()), float(plain.var(0, ddof=1).mean())
+    check(abs(z) < 5.0, f"MH: sharded returns' mean is off the one-process mean, z = {z}")
+    check(var_s <= 1.5 * var_p + 1e-6, f"MH: sharded variance {var_s} > 1.5 x {var_p}")
+    return {"processes": len(ranks), "dryrun_s": dryrun_s, "mesh": ranks[0]["mesh"], "rows": MH_ROWS,
+            "loss_one_process": loss, "loss_ranks": [r["loss"] for r in ranks],
+            "loss_rel_err": err["loss"], "grad_max_abs_err": worst["grad"], "tol": [1e-5, 1e-6],
+            "train_device": {"losses": list(map(float, losses)),
+                             "param_max_abs_err": worst["train_param"], "tol": [1e-4, 1e-5]},
+            "plan": {"keys": MH_KEYS, "population": POP_E, "k2_launches_a_rank":
+                     [r["plan_launches"][k2] for r in ranks], "z": z, "var_sharded": var_s,
+                     "var_one_process": var_p, "mean_sharded": float(sharded.mean()),
+                     "mean_one_process": float(plain.mean())},
+            "plan_generic": {"k3_launches_a_rank": [r["plan_generic_launches"][k3] for r in ranks],
+                             "max_abs_err": worst["generic_value"], "tol": [1e-5, 1e-6]}}
+
+
 def published_config_e() -> int:
     """Config E alone at the published ``num_steps`` (5,000 planned steps,
     100 retrainings): its trial rewards, plan and retraining times, and the
@@ -2885,6 +3369,34 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
     print(f"config DG phases ({dg_s:.1f} s):\n" + timer.report(), flush=True)
     dg_summary = timer.summary()
 
+    # configs POOL-E and POOL-M: the batched loops over a pool of worker
+    # processes. POOL-E plans for each worker at E's shape (75 K2 a plan);
+    # POOL-M's imagined rollouts launch K3 at M's 80,000 rows, once a retraining
+    print(f"config POOL-E: {POOL_WORKERS} workers, num_steps {POOL_E_STEPS} after "
+          f"{CONFIG_E['algorithm']['initial_exploration_steps']} of exploration, trial_length "
+          f"cut from {CONFIG_E['overrides']['trial_length']} to {POOL_E_TRIAL}", flush=True)
+    pool_e, counts_pe = counted(pool_config_e)
+    print("config POOL-E pets.train: " + json.dumps(pool_e) + f"  launches {counts_pe}", flush=True)
+    want_pe = only_k2(pool_e["batched_steps"] * POOL_WORKERS * 5 * 15)
+    check(counts_pe == want_pe, f"config POOL-E: expected launches {want_pe}, got {counts_pe}")
+    print(f"config POOL-M: {POOL_WORKERS} workers, num_steps cut from {M_PUBLISHED_STEPS} to "
+          f"{POOL_M_STEPS} after {CONFIG_M['algorithm']['initial_exploration_steps']} steps of "
+          "exploration by the SAC agent", flush=True)
+    pool_m, counts_pm = counted(pool_config_m)
+    print("config POOL-M mbpo.train: " + json.dumps(pool_m) + f"  launches {counts_pm}", flush=True)
+    want_pm = only_k3(pool_m["retrainings"] * 1)  # rollout length 1
+    check(counts_pm == want_pm, f"config POOL-M: expected launches {want_pm}, got {counts_pm}")
+
+    # config MESH-1: parallel=mesh on the one card equals the unsharded runs;
+    # config MH: two processes on the card under gloo
+    t_mesh = time.perf_counter()
+    mesh1 = mesh_one()
+    mesh1_s = time.perf_counter() - t_mesh
+    print(f"config MESH-1, mesh against unsharded (torch.equal; {mesh1_s:.1f} s): "
+          + json.dumps(mesh1), flush=True)
+    mh = multihost_config_mh()
+    print("config MH, two processes on the card: " + json.dumps(mh), flush=True)
+
     # K3 several times, each row checked and timed at the shape that its
     # launches had: C's 8,000-row steps, C's 100,000-row rollout, D's rollout
     # steps, M's imagined rollouts; the wide route's rows at 512 columns
@@ -2912,10 +3424,14 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
         "K2@DG": (k2, "f32", counts_dg[k2], chain["K2"]),
         "K3@DG": (k3, "f32", counts_dg[k3], chain["K3"]),
         "K2@TUT": (k2, "f32", counts_tut[k2], chain["K2"]),
+        "K2@POOL-E": (k2, "f32", counts_pe[k2], chain["K2"]),
+        "K3@POOL-M": (k3, "f32", counts_pm[k3], chain["K3"]),
     }
-    for dt in ("f32", "bf16"):  # CL's K1 and K2 launch at A's and B's shapes, DG's K2 at E's
+    for dt in ("f32", "bf16"):  # CL's K1 and K2 launch at A's and B's shapes, DG's K2 at E's,
+        # POOL-E's K2 at E's and POOL-M's K3 at M's
         results[("K1@CL-A", dt)], results[("K2@CL-B", dt)] = results[("K1", dt)], results[("K2", dt)]
         results[("K2@DG", dt)] = results[("K2@E", dt)]
+        results[("K2@POOL-E", dt)], results[("K3@POOL-M", dt)] = results[("K2@E", dt)], results[("K3@M", dt)]
     stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
     line = []
     for k, (wrapper, dtype, launches, src) in rows.items():
@@ -2972,6 +3488,16 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
                           "finetune_collect_and_train_s": dg_summary["finetune"]["total_s"],
                           "tutorial_pets_ms_per_step": dg_summary["tutorial_pets"]["total_s"] * 1e3
                           / dg["tutorial_pets"]["env_steps"]},
+                      "pool_POOL_E": {k: pool_e[k] for k in (
+                          "batched_step_ms_median", "env_step_ms_median", "retrain_step_ms_median",
+                          "episodes", "total_s")},
+                      "pool_POOL_M": {k: pool_m[k] for k in (
+                          "batched_step_ms_median", "env_step_ms_median", "sac_updates_per_s",
+                          "total_s")},
+                      "mesh_MESH_1": {"total_s": mesh1_s, **{k: v["launches"] for k, v in
+                                                              mesh1.items() if k != "mesh"}},
+                      "multihost_MH": {k: mh[k] for k in (
+                          "loss_rel_err", "grad_max_abs_err", "dryrun_s")},
                       "build_s": build_s,
                       "total_s": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)

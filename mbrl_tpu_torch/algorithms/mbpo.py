@@ -12,8 +12,11 @@ replay buffer; on ``device`` run the ensemble's retraining, the imagined
 rollout (per step: a policy action, ``ModelEnv.step`` with ``sample=True``,
 which is kernel K3, and a masked write into the device SAC buffer; no host
 sync) and each environment step's bundle of SAC updates (batch indices drawn
-on the device). A ``parallel`` group other than ``none`` and
-``num_env_workers > 0`` raise ``NotImplementedError``. With ``save_video``
+on the device). With ``parallel=mesh`` the retraining's rows and the imagined
+rollout's rows split over the ranks of a process group (``parallel/``); with
+``overrides.num_env_workers`` > 0 a pool of worker processes steps that many
+environments per step, all acted for by one ``SACAgent.act(batched=True)``,
+and ``env_steps`` advances by the pool's width. With ``save_video``
 each epoch's first evaluation episode is recorded
 (``util.video.VideoRecorder``) into ``<work_dir>/video/<epoch>.mp4``, or
 ``<epoch>.mp4.npz`` without ``imageio``.
@@ -26,6 +29,7 @@ evaluation episode ends when the test environment says so (the port's
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -37,6 +41,7 @@ from mbrl_tpu_torch.config import Config, create_one_dim_tr_model
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.models import ModelEnv, ModelTrainer
 from mbrl_tpu_torch.ops.math import truncated_linear
+from mbrl_tpu_torch.parallel import distributed_collect, make_parallel_context
 from mbrl_tpu_torch.planning import RandomAgent
 from mbrl_tpu_torch.planning.sac import SAC, SACAgent
 from mbrl_tpu_torch.util import checkpoint as ckpt
@@ -80,6 +85,9 @@ def imagined_rollout(
         if prepare is not None:
             # every step's TS1 permutation drawn before the loop
             ms = prepare(model_state, ms, horizon, generator)
+        # under a mesh the model's steps split their work over the ranks
+        # (ModelEnv.shard); every rank holds the whole batch
+        ms = model_env.shard(ms)
         obs = initial_obs
         alive = torch.ones((batch,), dtype=torch.bool, device=initial_obs.device)
         for _ in range(horizon):
@@ -165,9 +173,11 @@ def train(
     work_dir: Optional[str] = None,
     device: DeviceLike = "cuda",
 ) -> np.float32:
-    # one trainer per work dir (util/runlock.py)
-    with run_lock(work_dir or os.getcwd()):
-        return _train_impl(env, test_env, termination_fn, cfg, silent, work_dir, device)
+    # one trainer per work dir (util/runlock.py); the worker pool, if any,
+    # closes on the way out, also on an exception
+    with run_lock(work_dir or os.getcwd()), contextlib.ExitStack() as cleanup:
+        return _train_impl(env, test_env, termination_fn, cfg, silent, work_dir, device,
+                           cleanup)
 
 
 def _train_impl(
@@ -175,11 +185,11 @@ def _train_impl(
     test_env,
     termination_fn,
     cfg: Config,
-    silent: bool = False,
-    work_dir: Optional[str] = None,
-    device: DeviceLike = "cuda",
+    silent: bool,
+    work_dir: Optional[str],
+    device: DeviceLike,
+    cleanup: contextlib.ExitStack,
 ) -> np.float32:
-    util_common.reject_unported_parallel(cfg)
     device = resolve_device(device)
     debug_mode = cfg.get("debug_mode", False)
     obs_shape = env.observation_space.shape
@@ -232,6 +242,14 @@ def _train_impl(
         cfg, obs_shape, act_shape, rng=rng, obs_type=dtype, action_type=dtype, reward_type=dtype,
     )
 
+    # optional batched collection: this process's slice of the global worker
+    # pool; the settings a pool cannot run with are refused before a worker
+    # starts
+    distributed_collect.check_pool_width(cfg, int(cfg.overrides.freq_train_model))
+    collector = distributed_collect.maybe_make_collector(cfg, seed=seed + 100)
+    if collector is not None:
+        cleanup.callback(collector.close)
+
     resume_snap = None
     if cfg.get("resume", False):
         latest = ckpt.latest_checkpoint(work_dir)
@@ -241,20 +259,37 @@ def _train_impl(
             print(f"Resuming from {latest}; skipping initial exploration.")
     if resume_snap is None:
         random_explore = cfg.algorithm.random_initial_explore
-        util_common.rollout_agent_trajectories(
-            env,
-            cfg.algorithm.initial_exploration_steps,
-            RandomAgent(env) if random_explore else agent,
-            {} if random_explore else {"sample": True, "batched": False},
-            replay_buffer=replay_buffer,
-        )
+        if collector is not None and random_explore:
+            # the GLOBAL exploration budget over the GLOBAL pool width: every
+            # process runs the same number of batched steps
+            collector.collect_random(
+                env.action_space,
+                -(-cfg.algorithm.initial_exploration_steps // collector.num_workers_total),
+                replay_buffer=replay_buffer,
+            )
+        else:
+            util_common.rollout_agent_trajectories(
+                env,
+                cfg.algorithm.initial_exploration_steps,
+                RandomAgent(env) if random_explore else agent,
+                {} if random_explore else {"sample": True, "batched": False},
+                replay_buffer=replay_buffer,
+            )
 
-    model_env = ModelEnv(dynamics_model, termination_fn, None)
+    # optional mesh from the `parallel:` config group: the retraining's rows
+    # and members and the imagined rollout's rows over the mesh; SAC and its
+    # buffers are whole on every rank
+    pctx = make_parallel_context(cfg)
+    model_env = ModelEnv(
+        dynamics_model, termination_fn, None,
+        particle_sharding=pctx.particle_sharding() if pctx else None,
+    )
     model_trainer = ModelTrainer(
         dynamics_model,
         optim_lr=cfg.overrides.model_lr,
         weight_decay=cfg.overrides.model_wd,
         logger=logger,
+        parallel_ctx=pctx,
     )
 
     # ----------------- loop -----------------
@@ -302,8 +337,11 @@ def _train_impl(
         best_eval_reward = -np.inf if _ber is None else float(_ber)
         print(f"Resumed at env step {env_steps} (epoch {epoch}).")
 
+    step_delta = 1 if collector is None else collector.num_workers_total
+
     def _crosses(freq: int) -> bool:
-        return (env_steps + 1) // freq > env_steps // freq
+        # stays right when a batched step advances env_steps by more than 1
+        return (env_steps + step_delta) // freq > env_steps // freq
 
     while env_steps < cfg.overrides.num_steps:
         rollout_length = int(
@@ -323,12 +361,23 @@ def _train_impl(
         terminated = truncated = False
         steps_epoch = 0
         while steps_epoch < cfg.overrides.epoch_length:
-            if steps_epoch == 0 or terminated or truncated:
-                obs, _ = env.reset()
-                terminated = truncated = False
-            next_obs, reward, terminated, truncated, _ = util_common.step_env_and_add_to_buffer(
-                env, obs, agent, {"sample": True}, replay_buffer
-            )
+            if collector is None:
+                if steps_epoch == 0 or terminated or truncated:
+                    obs, _ = env.reset()
+                    terminated = truncated = False
+                next_obs, reward, terminated, truncated, _ = (
+                    util_common.step_env_and_add_to_buffer(
+                        env, obs, agent, {"sample": True}, replay_buffer
+                    )
+                )
+            else:
+                # one policy call acts for this process's whole worker slice
+                w_actions = np.atleast_2d(
+                    np.asarray(agent.act(collector.current_obs, sample=True, batched=True))
+                )
+                w_obs, w_next, w_rew, w_term, w_trunc = collector.step(w_actions)
+                replay_buffer.add_batch(w_obs, w_actions, w_next, w_rew, w_term, w_trunc)
+                next_obs = None
 
             # --------------- model training + imagined rollouts ---------------
             if _crosses(cfg.overrides.freq_train_model):
@@ -337,6 +386,8 @@ def _train_impl(
                         model_state, replay_buffer.get_all()
                     )
                     device_dataset.sync_from(replay_buffer)
+                    if pctx is not None:
+                        pctx.shard_dataset(device_dataset)
                     model_state, _, _ = model_trainer.train_device(
                         model_state,
                         device_dataset,
@@ -451,7 +502,7 @@ def _train_impl(
                     sac.save_checkpoint(sac_state, os.path.join(work_dir, "sac.pkl"))
                 epoch += 1
 
-            env_steps += 1
-            steps_epoch += 1
+            env_steps += step_delta
+            steps_epoch += step_delta
             obs = next_obs
     return np.float32(best_eval_reward)

@@ -9,6 +9,11 @@ The host loop steps the real environment and feeds the replay buffer; planning
 and model training run on ``device``. The agent's objective reads the model
 wrapper STATE, refreshed via ``set_eval_state`` after each retraining.
 
+With ``parallel=mesh`` the planning particles and the training rows split
+over the ranks of a process group (``parallel/``); with
+``overrides.num_env_workers`` > 0 a pool of worker processes steps that many
+environments, each planned for by ``act(batched=True)``.
+
 The environment is any object with ``observation_space.shape``,
 ``action_space.{low, high, shape, sample}``, ``reset`` and ``step`` (a
 ``gymnasium`` environment is one such); ``termination_fn`` and ``reward_fn``
@@ -26,6 +31,7 @@ import mbrl_tpu_torch.constants
 from mbrl_tpu_torch.config import Config, complete_agent_cfg, create_one_dim_tr_model, instantiate
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.models import ModelEnv, ModelTrainer
+from mbrl_tpu_torch.parallel import distributed_collect, make_parallel_context
 from mbrl_tpu_torch.planning import RandomAgent, create_trajectory_optim_agent_for_model
 from mbrl_tpu_torch.util import checkpoint as ckpt
 from mbrl_tpu_torch.util import common as util_common
@@ -60,7 +66,6 @@ def _train_impl(
     work_dir: Optional[str] = None,
     device: DeviceLike = "cuda",
 ) -> np.float32:
-    util_common.reject_unported_parallel(cfg)
     device = resolve_device(device)
     debug_mode = cfg.get("debug_mode", False)
 
@@ -111,12 +116,22 @@ def _train_impl(
         replay_buffer.save(work_dir)
 
     # ---------- Create model environment and agent -----------
-    model_env = ModelEnv(dynamics_model, termination_fn, reward_fn)
+    # optional mesh from the `parallel:` config group: planning particles and
+    # training rows over the data axis, members over the model axis inside a
+    # retraining; the model state stays whole on every rank between them
+    pctx = make_parallel_context(cfg)
+    model_env = ModelEnv(
+        dynamics_model,
+        termination_fn,
+        reward_fn,
+        particle_sharding=pctx.particle_sharding() if pctx else None,
+    )
     model_trainer = ModelTrainer(
         dynamics_model,
         optim_lr=cfg.overrides.model_lr,
         weight_decay=cfg.overrides.model_wd,
         logger=logger,
+        parallel_ctx=pctx,
     )
     agent_cfg = complete_agent_cfg(env, cfg.algorithm.agent, device=device)
     agent = instantiate(agent_cfg, seed=(cfg.seed or 0) + 1)
@@ -145,6 +160,8 @@ def _train_impl(
             model_state, replay_buffer.get_all()
         )
         device_dataset.sync_from(replay_buffer)
+        if pctx is not None:
+            pctx.shard_dataset(device_dataset)
         model_state, _, _ = model_trainer.train_device(
             model_state,
             device_dataset,
@@ -157,6 +174,11 @@ def _train_impl(
         dynamics_model.save(model_state, str(work_dir))
         replay_buffer.save(work_dir)
         return model_state
+
+    # optional batched collection: this process's slice of the worker pool,
+    # each step planned for every local worker by act(batched=True); the
+    # settings a pool cannot run with are refused before a worker starts
+    distributed_collect.check_pool_width(cfg, cfg.algorithm.freq_train_model)
 
     # --------------------- Training Loop ---------------------
     env_steps = 0
@@ -177,6 +199,78 @@ def _train_impl(
         print(f"Resumed at env step {env_steps}.")
     checkpoint_every = cfg.get("checkpoint_every", 0)
 
+    def checkpoint():
+        ckpt.save_checkpoint(
+            work_dir,
+            {
+                "model_state": model_state,
+                "generators": {
+                    "model": ckpt.generator_state(generator),
+                    "agent": ckpt.generator_state(agent._generator),
+                },
+                "env_steps": env_steps,
+                "current_trial": current_trial,
+                # None while no episode has finished: the NaN-refusing
+                # validator must not mistake the -inf sentinel for divergence
+                "max_total_reward": (
+                    float(max_total_reward) if np.isfinite(max_total_reward) else None
+                ),
+            },
+            step=env_steps,
+        )
+
+    collector = distributed_collect.maybe_make_collector(cfg, seed=(cfg.seed or 0) + 100)
+    if collector is not None:
+        # ---------------- batched worker-pool collection ----------------
+        # W trials side by side; retraining on cadence crossings of the
+        # GLOBAL env_steps (every process's workers), so budgets and cadences
+        # do not depend on the process count
+        try:
+            w = collector.num_local_workers
+            wg = collector.num_workers_total
+            freq = cfg.algorithm.freq_train_model
+            # the batched loop truncates trials at trial_length too: the
+            # shipped configs' environments never end an episode themselves
+            trial_length = int(cfg.overrides.get("trial_length", 0) or 0)
+            rewards_acc = np.zeros(w)
+            steps_in_trial = np.zeros(w, np.int64)
+            dones_mask = np.ones(w, bool)  # everyone plans anew on the first step
+            while env_steps < cfg.overrides.num_steps:
+                if env_steps == 0 or env_steps // freq != (env_steps + wg) // freq:
+                    model_state = retrain_model(model_state)
+                    agent.set_eval_state(model_state)
+                # checkpoint crossings are independent of retrain crossings
+                if checkpoint_every and env_steps and (
+                    env_steps // checkpoint_every != (env_steps + wg) // checkpoint_every
+                ):
+                    checkpoint()
+                actions = agent.act(collector.current_obs, batched=True, reset_mask=dones_mask)
+                obs_b, next_b, rew_b, term_b, trunc_b = collector.step(actions)
+                steps_in_trial += 1
+                if trial_length:
+                    timeout = (steps_in_trial >= trial_length) & ~(term_b | trunc_b)
+                    if timeout.any():
+                        trunc_b = trunc_b | timeout
+                        collector.reset_workers(np.flatnonzero(timeout))
+                replay_buffer.add_batch(obs_b, actions, next_b, rew_b, term_b, trunc_b)
+                rewards_acc += rew_b
+                dones_mask = term_b | trunc_b
+                steps_in_trial[dones_mask] = 0
+                for i in np.flatnonzero(dones_mask):
+                    total_reward = float(rewards_acc[i])
+                    rewards_acc[i] = 0.0
+                    current_trial += 1
+                    max_total_reward = max(max_total_reward, total_reward)
+                    if logger is not None:
+                        logger.log_data(
+                            mbrl_tpu_torch.constants.RESULTS_LOG_NAME,
+                            {"env_step": env_steps, "episode_reward": total_reward},
+                        )
+                env_steps += wg
+        finally:
+            collector.close()
+        return np.float32(max_total_reward)
+
     while env_steps < cfg.overrides.num_steps:
         obs, _ = env.reset()
         agent.reset()
@@ -190,27 +284,7 @@ def _train_impl(
                 agent.set_eval_state(model_state)
             # checkpoint cadence is independent of the retrain cadence
             if checkpoint_every and env_steps and env_steps % checkpoint_every == 0:
-                ckpt.save_checkpoint(
-                    work_dir,
-                    {
-                        "model_state": model_state,
-                        "generators": {
-                            "model": ckpt.generator_state(generator),
-                            "agent": ckpt.generator_state(agent._generator),
-                        },
-                        "env_steps": env_steps,
-                        "current_trial": current_trial,
-                        # None while no episode has finished: the
-                        # NaN-refusing validator must not mistake the
-                        # -inf sentinel for divergence
-                        "max_total_reward": (
-                            float(max_total_reward)
-                            if np.isfinite(max_total_reward)
-                            else None
-                        ),
-                    },
-                    step=env_steps,
-                )
+                checkpoint()
 
             next_obs, reward, terminated, truncated, _ = (
                 util_common.step_env_and_add_to_buffer(

@@ -33,6 +33,7 @@ from mbrl_tpu_torch.config import Config, complete_agent_cfg, instantiate
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.envs.termination_fns import no_termination
 from mbrl_tpu_torch.models import ModelEnv, ModelTrainer
+from mbrl_tpu_torch.parallel import make_parallel_context, replicate
 from mbrl_tpu_torch.planning import RandomAgent, create_trajectory_optim_agent_for_model
 from mbrl_tpu_torch.util import checkpoint as ckpt
 from mbrl_tpu_torch.util import common as util_common
@@ -69,7 +70,6 @@ def valid_window_starts(trajectory_indices, seq_len: int) -> np.ndarray:
 
 
 def _train_impl(env, cfg: Config, silent: bool, work_dir, device: DeviceLike) -> np.float32:
-    util_common.reject_unported_parallel(cfg)
     device = resolve_device(device)
     debug_mode = cfg.get("debug_mode", False)
     work_dir = pathlib.Path(work_dir if work_dir is not None else os.getcwd())
@@ -126,8 +126,18 @@ def _train_impl(env, cfg: Config, silent: bool, work_dir, device: DeviceLike) ->
     cfg.dynamics_model["action_size"] = env.action_space.shape[0]
     planet = instantiate(cfg.dynamics_model, device=device)
     planet_state = planet.init(generator)
-    model_env = ModelEnv(planet, no_termination, None)
-    trainer = ModelTrainer(planet, logger=logger, optim_lr=1e-3, optim_eps=1e-4)
+    # optional mesh (`parallel=mesh`; give the data axis every rank with
+    # parallel.model_axis_size=1): the RSSM is whole on every rank, each
+    # rank trains on its block of every batch's windows
+    pctx = make_parallel_context(cfg)
+    if pctx is not None:
+        planet_state = {**planet_state, "params": replicate(planet_state["params"], pctx.mesh)}
+    model_env = ModelEnv(
+        planet, no_termination, None,
+        particle_sharding=pctx.particle_sharding() if pctx else None,
+    )
+    trainer = ModelTrainer(planet, logger=logger, optim_lr=1e-3, optim_eps=1e-4,
+                           parallel_ctx=pctx)
     agent_cfg = complete_agent_cfg(env, cfg.algorithm.agent, device=device)
     agent = instantiate(agent_cfg, seed=(cfg.seed or 0) + 1)
     agent = create_trajectory_optim_agent_for_model(model_env, agent)
@@ -178,6 +188,8 @@ def _train_impl(env, cfg: Config, silent: bool, work_dir, device: DeviceLike) ->
         # --------------- train the RSSM ---------------
         if device_training:
             device_dataset.sync_from(replay_buffer)
+            if pctx is not None:
+                pctx.shard_dataset(device_dataset)
             planet_state, _ = trainer.train_device_sequences(
                 planet_state,
                 device_dataset,

@@ -125,6 +125,11 @@ class GaussianMLP:
         # the last params packed: one entry as they are, one with an input transform folded in
         self._packed: Dict[bool, _Packed] = {}
         self.packs = 0  # times `packed` had to pack anew
+        # under a mesh (parallel/): the loss is a sum of per-member terms and
+        # takes `rows` and `regularize`; sampling takes a block of rows
+        self.mesh_members = True
+        self.mesh_rows = True
+        self.mesh_particles = True
 
     # ------------------------------------------------------------------ #
     # Params
@@ -300,6 +305,74 @@ class GaussianMLP:
             inv[perm] = torch.arange(batch, dtype=perm.dtype, device=perm.device)
         return mean[inv], None if logvar is None else logvar[inv]
 
+    def _forward_split(
+        self, params: Params, x: torch.Tensor, sharding, generator, propagation_indices,
+        precomputed,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """:meth:`forward_propagated` of a batch whole on every rank of
+        ``sharding`` (a data axis of more than one rank): each rank computes a
+        share of the rows, and one all-reduce of zero-padded results gives the
+        whole batch's on every rank. The propagation's draws are of the whole
+        batch on every rank, as on one. With an equal shard for each elite, a
+        rank runs its block of the elites, each on its own shard (K3 on those
+        members alone); otherwise it runs its block of the rows through every
+        elite, as the unsharded per-row fallback does."""
+        mesh, axis = sharding.mesh, sharding.spec[0]
+        parts, part = mesh.shape[axis], mesh.coords[axis]
+        method = self.propagation_method
+        num_used = int(params["elite"].shape[0])
+        batch = x.shape[0]
+        dev = x.device
+        perm = idx = None
+        if method == "random_model":
+            if precomputed is not None:
+                perm = precomputed[0]
+            elif batch % num_used == 0:
+                perm = randperm(generator, batch, dev)
+            else:
+                idx = randint(generator, 0, num_used, (batch,), dev)
+        elif method == "fixed_model":
+            if batch % num_used == 0:
+                perm = propagation_indices
+            else:
+                idx = propagation_indices % num_used
+        elif method != "expectation":
+            raise ValueError(f"Invalid propagation method {method}.")
+        if perm is not None:
+            # slot p of the shuffled batch holds row perm[p] and is served by
+            # member p // shard; this rank serves members [m0, m1)
+            cached = self.packed(params)
+            p = cached.view
+            shard = batch // num_used
+            m0, m1 = part * num_used // parts, (part + 1) * num_used // parts
+            raw = x.new_zeros((batch, cached.stack.dims[-1]))
+            if m1 > m0:
+                slots = perm[m0 * shard:m1 * shard]
+                h = x[slots].reshape(m1 - m0, shard, x.shape[-1]).float().contiguous()
+                stack = dataclasses.replace(cached.stack, ws=cached.stack.ws[m0:m1],
+                                            bs=cached.stack.bs[m0:m1])
+                tiles = (None if cached.tiles is None
+                         else dataclasses.replace(cached.tiles, w=cached.tiles.w[m0:m1]))
+                out = kernels.fused_ensemble_mlp(h, stack, tiles=tiles)
+                raw[slots] = out.reshape(-1, out.shape[-1])
+            return self._bound(p, mesh.all_reduce(raw, (axis,)))
+        # this rank's block of the rows through every elite
+        block = mesh.block(batch, axis)
+        mean, logvar = self.forward(params, x[block], use_only_elite=True)
+        if idx is None:  # expectation
+            mean, logvar = mean.mean(dim=0), None if logvar is None else logvar.mean(dim=0)
+        else:
+            gather = idx[block].reshape(1, -1, 1).expand(1, mean.shape[1], mean.shape[-1])
+            mean = torch.gather(mean, 0, gather)[0]
+            logvar = None if logvar is None else torch.gather(logvar, 0, gather)[0]
+        local = mean if logvar is None else torch.cat([mean, logvar], dim=-1)
+        whole = x.new_zeros((batch, local.shape[-1]))
+        whole[block] = local
+        whole = mesh.all_reduce(whole, (axis,))
+        if logvar is None:
+            return whole, None
+        return whole[:, :mean.shape[-1]], whole[:, mean.shape[-1]:]
+
     def forward_propagated(
         self,
         params: Params,
@@ -307,16 +380,26 @@ class GaussianMLP:
         generator: Optional[torch.Generator] = None,
         propagation_indices: Optional[torch.Tensor] = None,
         precomputed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        sharding=None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Rollout-time forward that collapses the ensemble axis per the
         propagation method (over elite members). ``x`` is (B, in); returns
-        (B, out) mean/logvar."""
+        (B, out) mean/logvar. ``sharding`` (a ``parallel.mesh.Sharding`` of
+        the rows over a data axis that divides B): the ranks split the work
+        and each returns the whole batch's values (:meth:`_forward_split`)."""
         method = self.propagation_method
         if method is None or self.ensemble_size == 1:
             mean, logvar = self.forward(params, x)
             if self.ensemble_size == 1:
                 return mean[0], None if logvar is None else logvar[0]
             return mean, logvar
+        if sharding is not None:
+            if method == "random_model" and precomputed is None and generator is None:
+                raise ValueError("random_model propagation requires a generator")
+            if method == "fixed_model" and propagation_indices is None:
+                raise ValueError("fixed_model propagation requires propagation_indices")
+            return self._forward_split(params, x, sharding, generator, propagation_indices,
+                                       precomputed)
 
         num_used = int(params["elite"].shape[0])
         batch = x.shape[0]
@@ -354,26 +437,34 @@ class GaussianMLP:
     # Losses
     # ------------------------------------------------------------------ #
     def loss(
-        self, params: Params, model_in: torch.Tensor, target: torch.Tensor
+        self, params: Params, model_in: torch.Tensor, target: torch.Tensor,
+        rows: Optional[Tuple[slice, int]] = None, regularize: bool = True,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Training loss over ``(E, B, in)/(E, B, out)`` (or 2-D, auto-lifted).
 
         Probabilistic: per-member Gaussian NLL (mean over batch and output dim,
         summed over members) + logvar-bound regularizer. Deterministic: summed
-        squared error."""
+        squared error. A rank of a mesh passes its block of the members (the
+        params' member leaves and the batch's first axis), ``rows`` = (its
+        block of the batch's rows, the batch's row count), which the mean is
+        over, and ``regularize`` False on all but one rank of the model axis."""
         if model_in.ndim == 2:
             model_in = model_in[None]
             target = target[None]
-        if target.shape[0] != self.ensemble_size:
-            target = target.expand((self.ensemble_size,) + tuple(target.shape[1:]))
         mean, logvar = self.forward(params, model_in)
+        if target.shape[0] != mean.shape[0]:
+            target = target.expand(mean.shape)
         if self.deterministic:
             return torch.square(mean - target).sum(), {}
         nll_elem = torch.square(mean - target) * torch.exp(-logvar) + logvar
-        nll = nll_elem.mean(dim=(1, 2)).sum()
-        nll = nll + LOGVAR_BOUND_WEIGHT * (
-            params["max_logvar"].sum() - params["min_logvar"].sum()
-        )
+        if rows is None:
+            nll = nll_elem.mean(dim=(1, 2)).sum()
+        else:
+            nll = nll_elem.sum() / (rows[1] * nll_elem.shape[-1])
+        if regularize:
+            nll = nll + LOGVAR_BOUND_WEIGHT * (
+                params["max_logvar"].sum() - params["min_logvar"].sum()
+            )
         return nll, {}
 
     def eval_score(
@@ -442,6 +533,7 @@ class GaussianMLP:
             generator=generator,
             propagation_indices=model_state["propagation_indices"],
             precomputed=precomputed,
+            sharding=model_state.get("sharding"),
         )
         if deterministic or self.deterministic or logvar is None:
             return mean, model_state

@@ -135,6 +135,7 @@ class PlaNetModel:
         self.matmul_precision = matmul_precision
         self.num_elites = 1
         self.stochastic_loss = True  # the trainer passes a generator to loss()
+        self.mesh_rows = True  # loss() takes a block of the batch's windows
 
         self.encoder = Conv2dEncoder(
             encoder_config, self.obs_shape[1:], obs_encoding_size, device=self.device
@@ -288,16 +289,28 @@ class PlaNetModel:
         generator: Optional[torch.Generator] = None,
         post_noise: Optional[torch.Tensor] = None,
         prior_noise: Optional[torch.Tensor] = None,
+        rows: Optional[Tuple[slice, int]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """obs recon MSE (summed over CHW) + reward MSE + kl_scale * KL(q||p)
         with a free-nats clamp; means over batch and time. Without a
-        generator or noise, draws from a generator seeded 0."""
+        generator or noise, draws from a generator seeded 0. A rank of a mesh
+        passes its block of the windows and ``rows`` = (that block, the
+        batch's window count): the noise of the whole batch is drawn and the
+        block's kept, and the means are over the whole batch."""
         if generator is None and post_noise is None:
             generator = torch.Generator().manual_seed(0)
+        if rows is not None and post_noise is None:
+            block, total = rows
+            shape = (total, batch.obs.shape[1] - 1, self.latent_state_size)
+            post_noise = randn(generator, shape, self.device)[block]
+            prior_noise = randn(generator, shape, self.device)[block]
         obs_l, rew_l, kl_l = self._per_sequence_losses(
             state, batch, generator, False, post_noise, prior_noise
         )
-        obs_loss, reward_loss, kl_loss = obs_l.mean(), rew_l.mean(), kl_l.mean()
+        if rows is None:
+            obs_loss, reward_loss, kl_loss = obs_l.mean(), rew_l.mean(), kl_l.mean()
+        else:
+            obs_loss, reward_loss, kl_loss = (x.sum() / rows[1] for x in (obs_l, rew_l, kl_l))
         total = obs_loss + reward_loss + self.kl_scale * kl_loss
         meta = {"observations_loss": obs_loss, "reward_loss": reward_loss, "kl_loss": kl_loss}
         return total, meta

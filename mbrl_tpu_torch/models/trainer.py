@@ -15,6 +15,11 @@ PyTorch is eager and its tensors are mutable, which shapes three things here:
   - an epoch is a Python loop of small launches. Its losses are read back once
     per epoch, not once per step.
 
+With a ``parallel_ctx`` of more than one rank, a call splits over the mesh
+(:class:`_MeshPlan`): each rank trains its block of members on its block of
+every batch's rows, and the gradients are summed across the ranks. On one rank
+a call is that of an unsharded trainer, operation for operation.
+
 ``train`` takes host iterators (re-stacked every epoch); ``train_device`` keeps
 the dataset on the device (``util.device_buffer.DeviceTransitionDataset``) and
 draws the split, the bootstrap and the batch order there;
@@ -34,6 +39,7 @@ import torch
 
 from mbrl_tpu_torch.device import rand, randint, randperm
 from mbrl_tpu_torch.ops.tree import tree_leaves_with_path, tree_set
+from mbrl_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from mbrl_tpu_torch.types import TransitionBatch
 
 
@@ -54,26 +60,125 @@ def _require_finite(name: str, arr, context: str = "") -> None:
         )
 
 
+class _MeshPlan:
+    """How a training call splits over a mesh of more than one rank (the
+    counterpart of the JAX trainer's ``_maybe_shard_stacked``).
+
+    Every rank draws the randomness of the whole call (split, bootstrap,
+    batch order, a stochastic loss's noise), so the ranks agree on every
+    batch and each keeps its block: its members along ``model`` when the axis
+    divides the ensemble and the model's loss is a sum of per-member terms
+    (``mesh_members``), and its rows along ``data`` when the axis divides the
+    batch and the model's loss takes ``rows`` (``mesh_rows``). A loss over a
+    block of rows is normalised by the whole batch's rows; the gradients are
+    summed over ``data`` (the rows) and, for the leaves every member shares,
+    over ``model``; each rank steps Adam on its own members. What a model
+    cannot split is computed whole on every rank."""
+
+    def __init__(self, mesh: Mesh, model):
+        self.mesh = mesh
+        self.ensemble_size = max(len(model), 1)
+        m, d = mesh.shape[MODEL_AXIS], mesh.shape[DATA_AXIS]
+        split_members = (m > 1 and self.ensemble_size % m == 0
+                         and getattr(model, "mesh_members", False))
+        self.member_block = mesh.block(self.ensemble_size, MODEL_AXIS) if split_members else None
+        self.split_rows = d > 1 and getattr(model, "mesh_rows", False)
+        # a loss of member terms (mesh_members) has a regularizer of the leaves
+        # every member shares: one rank of the mesh adds it
+        self.takes_regularize = getattr(model, "mesh_members", False)
+
+    def is_member(self, leaf: torch.Tensor) -> bool:
+        return (self.member_block is not None and leaf.ndim >= 1
+                and leaf.shape[0] == self.ensemble_size)
+
+    def split(self, batch: TransitionBatch, member_stacked: bool):
+        """This rank's block of ``batch`` and the loss's keywords for it."""
+        kw: Dict[str, Any] = {}
+        members = slice(None)
+        regularize = True
+        if member_stacked and self.member_block is not None:
+            members = self.member_block
+            regularize = self.mesh.coords[MODEL_AXIS] == 0
+        n = batch.obs.shape[1 if member_stacked else 0]
+        rows = slice(None)
+        if self.split_rows and n % self.mesh.shape[DATA_AXIS] == 0:
+            rows = self.mesh.block(n, DATA_AXIS)
+            kw["rows"] = (rows, n)
+            regularize = regularize and self.mesh.coords[DATA_AXIS] == 0
+        if self.takes_regularize:
+            kw["regularize"] = regularize
+        if member_stacked:
+            return batch.map(lambda x: x[members][:, rows]), kw
+        return batch.map(lambda x: x[rows]), kw
+
+    def _axes(self, member: bool, rows_split: bool) -> Tuple[str, ...]:
+        axes = (DATA_AXIS,) if rows_split else ()
+        if self.member_block is not None and not member:
+            axes += (MODEL_AXIS,)
+        return axes
+
+    def reduce_grads(self, leaves: List[torch.Tensor], members: List[bool],
+                     rows_split: bool) -> None:
+        """Sum the gradients over the ranks that computed parts of them: one
+        all-reduce of the flattened gradients per set of axes."""
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for leaf, member in zip(leaves, members):
+            if leaf.grad is not None:
+                by_axes.setdefault(self._axes(member, rows_split), []).append(leaf.grad)
+        for axes, grads in by_axes.items():
+            if not axes:
+                continue
+            flat = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), axes)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+    def reduce_losses(self, losses: torch.Tensor, rows_split: bool) -> torch.Tensor:
+        """The whole batch's losses from each rank's part of them."""
+        return self.mesh.all_reduce(losses.clone(), self._axes(False, rows_split))
+
+    def reduce_metas(self, metas: List[Dict[str, Any]], rows_split: bool) -> List[Dict[str, Any]]:
+        """Each step's meta summed like its loss; ``grad_norm`` is of the
+        summed gradients already."""
+        if not metas:
+            return metas
+        keys = [k for k in metas[0] if k != "grad_norm"]
+        if not keys:
+            return metas
+        table = self.reduce_losses(
+            torch.stack([torch.stack([m[k].float() for k in keys]) for m in metas]), rows_split)
+        return [{**m, **dict(zip(keys, row))} for m, row in zip(metas, table)]
+
+
 class _Work:
     """One call's trainable copy of the params, its optimizer and the paths of
-    the trainable leaves."""
+    the trainable leaves. Under a mesh plan the member leaves hold this rank's
+    block of members, and the gradients are summed over the mesh before each
+    optimizer step."""
 
     def __init__(self, trainer: "ModelTrainer", state: Dict[str, Any]):
         params = state["params"]
         frozen = set(getattr(trainer.model, "frozen_param_keys", ()))
+        self.plan: Optional[_MeshPlan] = trainer._plan
         self.paths = [
             path for path, leaf in tree_leaves_with_path(params)
             if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
             and path[0] not in frozen
         ]
         self.leaves = []
+        self.members: List[bool] = []  # per leaf: a block of members on this rank
         self.params = params
         for path in self.paths:
             leaf = params
             for key in path:
                 leaf = leaf[key]
+            member = self.plan is not None and self.plan.is_member(leaf)
+            if member:
+                leaf = leaf[self.plan.member_block]
             leaf = leaf.detach().clone().requires_grad_(True)
             self.leaves.append(leaf)
+            self.members.append(member)
             self.params = tree_set(self.params, path, leaf)
         # one parameter group: the decay reaches every trainable leaf, biases too
         self.optimizer = torch.optim.Adam(
@@ -83,9 +188,12 @@ class _Work:
         opt_state = state.get("opt_state")
         if opt_state is not None:
             opt_state = copy.deepcopy(opt_state)
-            for entry in opt_state["state"].values():
+            for i, entry in opt_state["state"].items():
                 if isinstance(entry.get("step"), torch.Tensor):
                     entry["step"] = entry["step"].cpu()  # read on the host every step
+                if self.members[i]:
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        entry[key] = entry[key][self.plan.member_block]
             self.optimizer.load_state_dict(opt_state)
         self.normalizer = state.get("normalizer")
         self.clip_norm = getattr(trainer.model, "grad_clip_norm", None)
@@ -96,22 +204,50 @@ class _Work:
     def snapshot(self) -> List[torch.Tensor]:
         return [leaf.detach().clone() for leaf in self.leaves]
 
+    def _whole(self, i: int, leaf: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` with every member (gathered over the model axis)."""
+        if not self.members[i]:
+            return leaf
+        return self.plan.mesh.gather(leaf.detach().contiguous(), MODEL_AXIS)
+
     def params_with(self, leaves: List[torch.Tensor]):
+        """The params with ``leaves``, every member of them."""
         params = self.params
-        for path, leaf in zip(self.paths, leaves):
-            params = tree_set(params, path, leaf.detach())
+        for i, (path, leaf) in enumerate(zip(self.paths, leaves)):
+            params = tree_set(params, path, self._whole(i, leaf.detach()))
         return params
 
     def opt_state(self):
-        return copy.deepcopy(self.optimizer.state_dict())
+        opt_state = copy.deepcopy(self.optimizer.state_dict())
+        for i, entry in opt_state["state"].items():
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in entry:
+                    entry[key] = self._whole(i, entry[key])
+        return opt_state
 
-    def step(self, loss: torch.Tensor, want_norm: bool = False) -> Optional[torch.Tensor]:
-        """One optimizer update from ``loss``; the pre-clip global gradient
-        norm when clipping or ``want_norm``."""
+    def backward(self, loss: torch.Tensor, rows_split: bool = False) -> None:
+        """Every leaf's gradient of ``loss``, summed over the mesh's ranks."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.plan is not None:
+            self.plan.reduce_grads(self.leaves, self.members, rows_split)
+
+    def step(self, loss: torch.Tensor, want_norm: bool = False,
+             rows_split: bool = False) -> Optional[torch.Tensor]:
+        """One optimizer update from ``loss``; the pre-clip global gradient
+        norm when clipping or ``want_norm``. ``rows_split``: the loss is of
+        this rank's block of the batch's rows."""
+        self.backward(loss, rows_split)
         norm = None
-        if self.clip_norm:
+        if self.plan is not None and self.plan.member_block is not None:
+            if self.clip_norm or want_norm:
+                norm = self._split_norm()
+            if self.clip_norm:  # as clip_grad_norm_ scales
+                coef = torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
+                for leaf in self.leaves:
+                    if leaf.grad is not None:
+                        leaf.grad.mul_(coef)
+        elif self.clip_norm:
             norm = torch.nn.utils.clip_grad_norm_(self.leaves, self.clip_norm)
         elif want_norm:
             norm = torch.linalg.vector_norm(
@@ -119,6 +255,22 @@ class _Work:
             )
         self.optimizer.step()
         return norm
+
+    def _split_norm(self) -> torch.Tensor:
+        """The whole gradient's norm when the members split over the model
+        axis: the squares of this rank's member gradients summed over the
+        axis, plus those of the leaves every member shares (whole here)."""
+        own = torch.zeros((), device=self.leaves[0].device)
+        shared = torch.zeros((), device=self.leaves[0].device)
+        for leaf, member in zip(self.leaves, self.members):
+            if leaf.grad is not None:
+                sq = leaf.grad.float().square().sum()
+                if member:
+                    own = own + sq
+                else:
+                    shared = shared + sq
+        own = self.plan.mesh.all_reduce(own[None], (MODEL_AXIS,))[0]
+        return torch.sqrt(own + shared)
 
 
 class ModelTrainer:
@@ -136,11 +288,16 @@ class ModelTrainer:
         pad_epoch_to_multiple: int = 8,
         parallel_ctx=None,
     ):
-        if parallel_ctx is not None:
-            raise NotImplementedError(
-                "parallel_ctx (mesh sharding) comes with the slice that ports parallel/; pass None"
-            )
         self.model = model
+        self.parallel_ctx = parallel_ctx
+        # how a call's work splits over the mesh; None on one rank, where the
+        # calls are those of an unsharded trainer
+        self._plan = (
+            _MeshPlan(parallel_ctx.mesh, model)
+            if parallel_ctx is not None and parallel_ctx.shard_training
+            and parallel_ctx.mesh.size > 1
+            else None
+        )
         self.logger = logger
         self.optim_lr = optim_lr
         self.weight_decay = weight_decay
@@ -167,10 +324,47 @@ class ModelTrainer:
         self._stochastic_loss = getattr(model, "stochastic_loss", False)
         self._precision = getattr(model, "precision", contextlib.nullcontext)
 
-    def _loss(self, work: _Work, batch: TransitionBatch, generator: torch.Generator):
-        if self._stochastic_loss:
-            return self.model.loss(work.state(), batch, generator=generator)
-        return self.model.loss(work.state(), batch)
+    def _loss(self, work: _Work, batch: TransitionBatch, generator: torch.Generator,
+              member_stacked: bool = True):
+        """The loss of ``batch`` and its meta, and whether it was of this
+        rank's block of the batch's rows. Under a mesh plan the rank takes its
+        members (``member_stacked``: (E, B, ...) leaves) and its rows of the
+        batch; the loss is normalised by the whole batch's rows."""
+        kw = {"generator": generator} if self._stochastic_loss else {}
+        rows_split = False
+        if work.plan is not None:
+            batch, plan_kw = work.plan.split(batch, member_stacked)
+            rows_split = "rows" in plan_kw
+            kw.update(plan_kw)
+        loss, meta = self.model.loss(work.state(), batch, **kw)
+        return loss, meta, rows_split
+
+    def loss_and_grads(
+        self, state: Dict[str, Any], batch: TransitionBatch,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[Tuple, torch.Tensor]]:
+        """One training step's loss of ``batch`` ((E, B, ...) leaves) and the
+        gradient of every trainable leaf, by path, without the update. Under a
+        mesh both are whole on every rank: the parts summed over the ranks and
+        each member's gradient gathered over the model axis."""
+        work = _Work(self, state)
+        with self._precision():
+            loss, _, rows_split = self._loss(work, batch, generator,
+                                             member_stacked=batch.obs.ndim == 3)
+            work.backward(loss, rows_split)
+        loss = loss.detach()
+        if work.plan is not None:
+            loss = work.plan.reduce_losses(loss[None], rows_split)[0]
+        return loss, {path: work._whole(i, leaf.grad)
+                      for i, (path, leaf) in enumerate(zip(work.paths, work.leaves))}
+
+    def _work_scores(self, work: _Work, batch: TransitionBatch) -> torch.Tensor:
+        """Per-member validation scores (E,) of the work's weights: each rank
+        scores its members on the whole batch, gathered over the model axis."""
+        scores = self._scores(work.state(), batch)
+        if work.plan is not None and work.plan.member_block is not None:
+            scores = work.plan.mesh.gather(scores, MODEL_AXIS)
+        return scores
 
     # ------------------------------------------------------------------ #
     def _scores(self, state, batch: TransitionBatch) -> torch.Tensor:
@@ -232,7 +426,7 @@ class ModelTrainer:
         val_scores: List[float] = []
         best_leaves = None  # None: the weights the call started from
         best_val_score = (
-            self._scores(work.state(), val_batch).cpu().numpy() if evaluate else None
+            self._work_scores(work, val_batch).cpu().numpy() if evaluate else None
         )
         epochs_since_update = 0
         epoch = 0
@@ -243,12 +437,20 @@ class ModelTrainer:
             stacked = self._pad_epoch(stacked).to(dev)
             losses, metas = [], []
             for i in range(len(stacked)):
+                batch = stacked[i]
                 with self._precision():
-                    loss, meta = self._loss(work, stacked[i], generator)
-                    norm = work.step(loss, want_norm=batch_callback is not None)
+                    loss, meta, rows_split = self._loss(
+                        work, batch, generator, member_stacked=batch.obs.ndim == 3)
+                    norm = work.step(loss, want_norm=batch_callback is not None,
+                                     rows_split=rows_split)
                 losses.append(loss.detach())
                 metas.append({**_detached(meta), "grad_norm": norm})
-            batch_losses = torch.stack(losses).cpu().numpy()  # the epoch's one read-back
+            batch_losses = torch.stack(losses)
+            if work.plan is not None:
+                batch_losses = work.plan.reduce_losses(batch_losses, rows_split)
+                if batch_callback is not None:
+                    metas = work.plan.reduce_metas(metas, rows_split)
+            batch_losses = batch_losses.cpu().numpy()  # the epoch's one read-back
             train_loss = float(batch_losses.mean())
             _require_finite("train loss", train_loss, f"epoch {epoch}")
             training_losses.append(train_loss)
@@ -262,7 +464,7 @@ class ModelTrainer:
                     epoch_callback(epoch, train_loss, None)
                 continue
 
-            member_scores = self._scores(work.state(), val_batch).cpu().numpy()
+            member_scores = self._work_scores(work, val_batch).cpu().numpy()
             _require_finite("validation score", member_scores, f"epoch {epoch}")
             val_score = float(member_scores.mean())
             val_scores.append(val_score)
@@ -435,7 +637,7 @@ class ModelTrainer:
         val_batch = data[perm[val_pos]]
 
         work = _Work(self, state)
-        best_val = self._scores(work.state(), val_batch)
+        best_val = self._work_scores(work, val_batch)
         best_leaves = None
         losses: List[float] = []
         vals: List[np.ndarray] = []
@@ -449,14 +651,17 @@ class ModelTrainer:
             idx = idx.reshape(E, num_batches, batch_size).permute(1, 0, 2)
             batch_losses = []
             for b in range(num_batches):
-                loss, _ = self.model.loss(work.state(), data[idx[b]])  # (E, B, ...)
-                work.step(loss)
+                loss, _, rows_split = self._loss(work, data[idx[b]], generator)  # (E, B, ...)
+                work.step(loss, rows_split=rows_split)
                 batch_losses.append(loss.detach())
-            scores = self._scores(work.state(), val_batch)  # (E,)
+            batch_losses = torch.stack(batch_losses)
+            if work.plan is not None:
+                batch_losses = work.plan.reduce_losses(batch_losses, rows_split)
+            scores = self._work_scores(work, val_batch)  # (E,)
             improved = ((best_val - scores) / best_val.abs().clamp_min(1e-12)) > improvement_threshold
             # the epoch's one read-back: mean loss, scores, any-member improvement
             host = torch.cat(
-                [torch.stack(batch_losses).mean()[None], scores, improved.any()[None].float()]
+                [batch_losses.mean()[None], scores, improved.any()[None].float()]
             ).cpu().numpy()
             _require_finite("train loss", host[0], "train_device")
             _require_finite("validation score", host[1:-1], "train_device")
@@ -531,11 +736,15 @@ class ModelTrainer:
             for _ in range(num_updates):
                 pos = randint(generator, 0, n_starts, (batch_size,), dev)
                 batch = dataset.data[starts[pos][:, None] + offsets[None, :]]  # (B, L, ...)
-                loss, meta = self._loss(work, batch, generator)
-                norm = work.step(loss, want_norm=True)
+                loss, meta, rows_split = self._loss(work, batch, generator, member_stacked=False)
+                norm = work.step(loss, want_norm=True, rows_split=rows_split)
                 losses.append(loss.detach())
                 metas.append({**_detached(meta), "grad_norm": norm})
-        host_losses = torch.stack(losses).cpu().numpy()
+        host_losses = torch.stack(losses)
+        if work.plan is not None and num_updates:
+            host_losses = work.plan.reduce_losses(host_losses, rows_split)
+            metas = work.plan.reduce_metas(metas, rows_split)
+        host_losses = host_losses.cpu().numpy()
         _require_finite("train loss", host_losses, "train_device_sequences")
         if batch_callback is not None:
             for i, meta in enumerate(_host_metas(metas)):

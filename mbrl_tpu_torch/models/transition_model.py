@@ -57,6 +57,10 @@ class TransitionRewardModel:
         self.learned_rewards = learned_rewards
         self.obs_process_fn = obs_process_fn
         self.no_delta_list = tuple(no_delta_list or ())
+        # what a mesh may split (models/trainer.py:_MeshPlan, models/model_env.py)
+        self.mesh_members = getattr(model, "mesh_members", False)
+        self.mesh_rows = getattr(model, "mesh_rows", False)
+        self.mesh_particles = getattr(model, "mesh_particles", False)
 
     @property
     def device(self) -> torch.device:
@@ -149,9 +153,11 @@ class TransitionRewardModel:
         return model_in, target
 
     # ------------------------------------------------------------------ #
-    def loss(self, state: Dict[str, Any], batch: TransitionBatch):
+    def loss(self, state: Dict[str, Any], batch: TransitionBatch, **mesh_kw):
+        """The model's loss on ``batch``; ``mesh_kw`` (``rows``, ``regularize``)
+        pass through to it from a rank of a mesh."""
         model_in, target = self.process_batch(state, batch)
-        return self.model.loss(state["params"], model_in, target)
+        return self.model.loss(state["params"], model_in, target, **mesh_kw)
 
     def eval_score(self, state: Dict[str, Any], batch: TransitionBatch):
         model_in, target = self.process_batch(state, batch)

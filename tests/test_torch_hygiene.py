@@ -3,6 +3,7 @@ its default device refuses to fall back to the CPU, and chip_smoke.py fails
 without a CUDA device."""
 import ast
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -150,6 +151,71 @@ def test_chip_smoke_imports_need_neither_gymnasium_nor_yaml():
     assert bad == "[]", bad
 
 
+_BLOCKER = (
+    "import sys, importlib.abc, importlib.machinery\n"
+    "BLOCKED = ('gymnasium', 'gym', 'yaml', 'jax', 'jaxlib', 'flax', 'optax', 'mbrl_tpu',\n"
+    "           'mujoco', 'dm_control')\n"
+    "class Block(importlib.abc.MetaPathFinder, importlib.abc.Loader):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in BLOCKED:\n"
+    "            return importlib.machinery.ModuleSpec(name, self)\n"
+    "    def create_module(self, spec):\n"
+    "        raise ModuleNotFoundError(f'{spec.name} is blocked in this test', name=spec.name)\n"
+    "    def exec_module(self, module):\n"
+    "        pass\n"
+    "sys.meta_path.insert(0, Block())\n"
+)
+
+
+def test_parallel_and_its_pool_workers_need_no_jax_gymnasium_mujoco_or_yaml():
+    """``mbrl_tpu_torch.parallel`` imports with JAX, the JAX package,
+    ``gymnasium``, ``mujoco``, ``dm_control`` and ``yaml`` unimportable; a pool
+    built as chip_smoke.py's POOL-E phase builds it (``make_env_ctor`` of
+    config E) steps, and its workers imported none of them and initialised
+    no CUDA."""
+    code = _BLOCKER + (
+        "import copy, importlib, numpy as np\n"
+        "for m in ('context', 'distributed_collect', 'env_workers', 'mesh', 'multihost'):\n"
+        "    importlib.import_module('mbrl_tpu_torch.parallel.' + m)\n"
+        "import chip_smoke\n"
+        "from mbrl_tpu_torch.config import Config\n"
+        "from mbrl_tpu_torch.parallel.distributed_collect import DistributedCollector, make_env_ctor\n"
+        "col = DistributedCollector(make_env_ctor(Config(copy.deepcopy(chip_smoke.CONFIG_E))), 2)\n"
+        "try:\n"
+        "    col.step(np.zeros((2, 1), np.float32))\n"
+        "    info = col.pool.worker_info()\n"
+        "finally:\n"
+        "    col.close()\n"
+        "bad = sorted({p for i in info for p in i['packages'] if p in BLOCKED}\n"
+        "             | {k.split('.')[0] for k in sys.modules if k.split('.')[0] in BLOCKED})\n"
+        "print(len(info), any(i['cuda_initialized'] for i in info)); print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    summary, bad = out.stdout.strip().splitlines()[-2:]
+    assert summary == "2 False" and bad == "[]", (summary, bad)
+
+
+def test_mesh_creates_no_process_group_in_one_process():
+    """With no group set up, ``make_mesh()`` and ``parallel=mesh``'s context
+    are 1 x 1 and leave ``torch.distributed`` uninitialised, even with the
+    variables that ``init_device_mesh`` would read to create a default group."""
+    code = (
+        "import torch.distributed as dist\n"
+        "from mbrl_tpu_torch.parallel import make_mesh, make_parallel_context\n"
+        "mesh = make_mesh()\n"
+        "pctx = make_parallel_context({'parallel': {'enable': True}})\n"
+        "print(mesh.size, pctx.mesh.size, dist.is_initialized())\n"
+    )
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29555", "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1", "1", "False"]
+
+
 @pytest.mark.parametrize("module,cls", [("pets_halfcheetah", "HalfCheetahEnv"),
                                         ("pets_cartpole", "CartPoleEnv")])
 def test_preprocess_fn_imports_without_gymnasium(module, cls):
@@ -277,6 +343,21 @@ def test_mbpo_entry_points_default_to_the_card(tmp_path):
     sac = SAC(4, space, hidden_size=8, device="cpu")
     SACAgent(sac, sac.init(torch.Generator().manual_seed(0))).act(np.zeros(4, np.float32))
     DeviceReplayBuffer(10, 4, 1, device="cpu").init()
+
+
+def test_multihost_dryrun_defaults_to_the_card(tmp_path):
+    """``run_multihost_dryrun`` and its ``--child`` body default to device
+    "cuda", which raises without a card before any rank starts."""
+    from mbrl_tpu_torch.parallel import run_multihost_dryrun
+
+    _skip_on_a_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_multihost_dryrun(2)
+    out = subprocess.run([sys.executable, "-m", "mbrl_tpu_torch.parallel.multihost", "--child",
+                          "--out", str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0 and "device 'cuda' requested" in out.stderr, out.stderr
+    assert "MULTIHOST OK" not in out.stdout
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -256,14 +256,6 @@ def test_small_train_finishes_and_resumes(tmp_path, monkeypatch, algorithm):
     assert ckpt.restore_checkpoint(ckpt.latest_checkpoint(tmp_path), device="cpu")["env_steps"] == 149
 
 
-def test_unported_options_raise(tmp_path):
-    cfg = _small_cfg()
-    cfg.overrides["num_env_workers"] = 2
-    with pytest.raises(NotImplementedError, match="num_env_workers"):
-        mbpo.train(MockLineEnv(), MockLineEnv(), _mock_term_fn, cfg, work_dir=str(tmp_path),
-                   device="cpu")
-
-
 # Whether this short run learns depends on the seed in both packages
 # (mbrl_tpu's test passes at its seed 12345 and fails at seed 1); the port's
 # generators draw other numbers than JAX's keys, so the port's test has a seed

@@ -240,8 +240,15 @@ def test_model_env_step_and_reset_follow_propagation():
     nxt, rew, term, ms2 = env.step(state, np.zeros((9, 2), np.float32), ms, g)
     assert nxt.shape == (9, 2) and rew.shape == (9, 1) and term.shape == (9, 1)
     torch.testing.assert_close(ms2["propagation_indices"], ms["propagation_indices"])
-    with pytest.raises(NotImplementedError):
-        ModelEnv(tw, termination_fns.no_termination, particle_sharding=object())
+    # a particle sharding over the one-process mesh steps the same particles
+    from mbrl_tpu_torch.parallel import make_parallel_context
+
+    sharding = make_parallel_context({"parallel": {"enable": True}}).particle_sharding()
+    sharded = ModelEnv(tw, termination_fns.no_termination, particle_sharding=sharding)
+    g = torch.Generator().manual_seed(1)
+    ms_s = sharded.shard(sharded.reset(state, np.zeros((9, 2), np.float32), g))
+    nxt_s, rew_s, term_s, _ = sharded.step(state, np.zeros((9, 2), np.float32), ms_s, g)
+    assert torch.equal(nxt_s, nxt) and torch.equal(rew_s, rew) and torch.equal(term_s, term)
 
 
 class _DummyModel:

@@ -233,24 +233,6 @@ def test_logger_writes_group_csv(tmp_path):
 
 
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("setting,value", [("parallel", {"enable": True}),
-                                           ("num_env_workers", 2)])
-def test_unported_settings_raise(setting, value, tmp_path):
-    cfg = _pets_cfg()
-    if setting == "parallel":
-        cfg["parallel"] = value
-    else:
-        cfg.overrides[setting] = value
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        pets.train(MockLineEnv(), mock_term_fn, mock_reward_fn, cfg, silent=True,
-                   work_dir=str(tmp_path), device="cpu")
-    with pytest.raises(RuntimeError, match="cuda"):
-        if torch.cuda.is_available():
-            raise RuntimeError("cuda present")
-        pets.train(MockLineEnv(), mock_term_fn, mock_reward_fn, _pets_cfg(), silent=True,
-                   work_dir=str(tmp_path))
-
-
 @pytest.mark.parametrize("device_training", [True, False], ids=["train_device", "host_iterators"])
 def test_short_pets_run_writes_its_files_and_resumes(device_training, tmp_path):
     """40 planned steps on a narrow model: both retraining routes run, the

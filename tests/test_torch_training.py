@@ -347,8 +347,16 @@ def test_divergence_raises_and_callbacks_fire():
     bad.next_obs[0, 0, 0, 0] = np.nan
     with pytest.raises(DivergenceError, match="non-finite"):
         trainer.train(tstate, bad, dataset_val=data, num_epochs=1)
-    with pytest.raises(NotImplementedError):
-        ModelTrainer(tw, parallel_ctx=object())
+    # a trainer on the one-process mesh trains as the plain one
+    from mbrl_tpu_torch.parallel import make_parallel_context
+
+    pctx = make_parallel_context({"parallel": {"enable": True}})
+    plain = ModelTrainer(tw, pad_epoch_to_multiple=0).train(tstate, train, dataset_val=data,
+                                                             num_epochs=1)
+    meshed = ModelTrainer(tw, pad_epoch_to_multiple=0, parallel_ctx=pctx).train(
+        tstate, train, dataset_val=data, num_epochs=1)
+    assert plain[1] == meshed[1] and plain[2] == meshed[2]
+    assert torch.equal(plain[0]["params"]["head"]["w"], meshed[0]["params"]["head"]["w"])
     # evaluate=False: no validation, the last weights come back
     new, losses, vals = trainer.train(tstate, train, num_epochs=1, evaluate=False)
     assert vals == [] and len(losses) == 1
