@@ -171,6 +171,15 @@ TOL = {
     ("K3", "f32"): 1e-4, ("K2", "f32"): 1e-4, ("K1", "f32"): 1e-3,
     ("K3", "bf16"): 2e-2, ("K2", "bf16"): 2e-2, ("K1", "bf16"): 5e-2,
 }
+# each chain row's ms in PR 11's archive run of this script (H100 80GB HBM3,
+# 700 W), before the chain's redesign: (main-path dtype, other dtype)
+PR11_MS = {
+    "K1": (0.7041, 1.2003), "K2": (0.04188, 0.02407), "K2@E": (0.03821, 0.02110),
+    "K2@MPPI": (0.04199, 0.02408), "K2@iCEM": (0.03806, 0.02094), "K3": (0.03991, 0.02172),
+    "K3@C100k": (0.4515, 0.2344), "K3@D": (0.03961, 0.02145), "K3@M": (0.3652, 0.1897),
+    "K3@CL-A": (0.02035, 0.03838), "K3@CL-B": (0.03792, 0.02020), "K3@DG": (0.03650, 0.01974),
+    "K2@TUT": (0.02167, 0.01340),
+}
 REPLACES = {
     "K1": "mbrl_tpu/ops/pallas_kernels.py:223 (fused_rollout_returns -> _rollout_kernel :141, pallas_call :299)",
     "K2": "mbrl_tpu/ops/pallas_kernels.py:381 (fused_ensemble_mlp_gaussian -> _gaussian_kernel :319, pallas_call :440)",
@@ -352,7 +361,7 @@ def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str):
     acts = seqs.repeat(PARTICLES, 1, 1).contiguous().to(dev)
     dmask = torch.ones((1, OBS_A), device=dev)
     args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, OBS_A + 1, tile)
-    tiles = K.pack_tiles(stack, 4 * K.MAX_TILE * (OBS_A + 1))
+    tiles = K.pack_tiles(stack, K.k1_extra_bytes(OBS_A, OBS_A + 1))
     got = K.fused_rollout_returns(g, *args, sample=False, tiles=tiles)
     ref = K.fused_rollout_returns_plain(g, *args, sample=False)
     err, ok = max_err(got, ref, TOL[("K1", dt_name)])
@@ -555,8 +564,9 @@ def width_sweep(device: str = "cuda"):
                 stack = K.pack_mlp(ws[:-1], bs[:-1], ws[-1], bs[-1], "silu", dtype=dtype)
                 max_lv = torch.full((1, out), 0.5, device=dev)
                 min_lv = torch.full((1, out), -10.0, device=dev)
-                carry = 4 * K.MAX_TILE * (OBS_A + 1) if name == "K1" else 0
-                chain = K.takes_chain(dims, dtype == torch.bfloat16, carry)
+                extra = (K.k1_extra_bytes(OBS_A, out) if name == "K1"
+                         else K.k2_extra_bytes(out) if name == "K2" else 0)
+                chain = K.takes_chain(dims, dtype == torch.bfloat16, extra)
                 check(chain == (width == K.TC_MAX_WIDTH),
                       f"{name} at width {width}: took the {'chain' if chain else 'wide route'}")
                 if name == "K1":
@@ -3433,6 +3443,9 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
         results[("K2@DG", dt)] = results[("K2@E", dt)]
         results[("K2@POOL-E", dt)], results[("K3@POOL-M", dt)] = results[("K2@E", dt)], results[("K3@M", dt)]
     stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
+    pr11 = {k: {dt: [results[(k, dt)]["ms"], PR11_MS[k][dt != rows[k][1]]] for dt in ("f32", "bf16")}
+            for k in PR11_MS}
+    print("chain rows, ms now and in PR 11: " + json.dumps(pr11), flush=True)
     line = []
     for k, (wrapper, dtype, launches, src) in rows.items():
         r = results[(k, dtype)]

@@ -14,7 +14,8 @@
 // the first tile.
 //
 // Design.
-// - The products are K2's: produce_chain() on the producer warp and
+// - The products are K2's: produce_chain() on the producer warpgroup's first
+//   thread (its other warps idle: K3 draws no normals) and
 //   consume_chain() on two consumer warpgroups (tc_chain.cuh; the design notes
 //   are at the top of tc_chain.cu): weights pre-packed by pack_chain in
 //   wgmma's layout, landed by 1-D bulk copies through the mbarrier ring, bf16
@@ -31,9 +32,10 @@
 //   producer is already landing the next tile's first chunks. At one wave
 //   (8,000 rows: 125 pairs) this is one tile a block.
 // - The raw-head epilogue: consume_chain leaves the head's (64, n_pad) f32
-//   tile at the start of the A region; the consumers copy its first head_out
-//   columns of the tile's real rows to out, which is contiguous for a tile,
-//   so the stores coalesce. The A region is also the next tile's input, hence
+//   tile (a narrow head: two partial tiles, added by head_at) at the start
+//   of the A region; the consumers copy its first head_out columns of the
+//   tile's real rows to out, which is contiguous for a tile, so the stores
+//   coalesce. The A region is also the next tile's input, hence
 //   the consumer barrier between the copy and the next staging.
 // - Every loop bound of the tile loop is block-uniform (blockIdx, gridDim and
 //   kernel arguments), on the producer's side and the consumers' alike: both
@@ -50,14 +52,16 @@
 // Marks of block 0: 0 start, 1 barriers set up; then, of the last tile it
 // ran, 29 tile begun, 2 input staged, consume_chain's 3.., 30 head written out.
 extern "C" int mbrl_timeline_k3(unsigned long long* out) {
-  return cudaMemcpyFromSymbol(out, tc_timeline, sizeof(tc_timeline));
+  static const unsigned long long zero[96] = {};
+  const cudaError_t err = cudaMemcpyFromSymbol(out, tc_timeline, sizeof(tc_timeline));
+  return err != cudaSuccess ? err : cudaMemcpyToSymbol(tc_timeline, zero, sizeof(zero));
 }
 #endif
 
-// grid = (blocks,), TC_THREADS threads. x (E, S, in) f32 -> out (E, S,
+// grid = (blocks,), TC_CHAIN_THREADS threads. x (E, S, in) f32 -> out (E, S,
 // head_out) f32, raw head; `ws` is pack_chain()'s tiles.
 template <int ACT, bool BF16>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(TC_CHAIN_THREADS, 1)
 ensemble_mlp_tc_kernel(const float* __restrict__ x, const unsigned char* __restrict__ ws,
                        const float* __restrict__ bs, float* __restrict__ out, const ChainDesc d,
                        int S, int num_tiles, int total) {
@@ -65,7 +69,7 @@ ensemble_mlp_tc_kernel(const float* __restrict__ x, const unsigned char* __restr
   TC_STAMP(0)
   init_barriers(d, smem);
   TC_STAMP(1)
-  if (__shfl_sync(0xffffffffu, threadIdx.x, 0) >= TC_CONSUMERS) {  // the producer warp
+  if (__shfl_sync(0xffffffffu, threadIdx.x, 0) >= TC_CONSUMERS) {  // the producer warpgroup
     if (threadIdx.x == TC_CONSUMERS) {
       uint32_t it = 0;
       for (int w = blockIdx.x; w < total; w += gridDim.x)
@@ -77,7 +81,7 @@ ensemble_mlp_tc_kernel(const float* __restrict__ x, const unsigned char* __restr
   unsigned char* a_buf = smem + TC_BARRIER_BYTES;
   const float* head = reinterpret_cast<const float*>(a_buf);
   const int din = d.dims[0], k0 = d.kp[0];
-  const int dh = d.dims[d.num_products], nh = d.np[d.num_products - 1];
+  const int dh = d.dims[d.num_products];
   uint32_t it = 0;
   for (int w = blockIdx.x; w < total; w += gridDim.x) {
     TC_STAMP(29)
@@ -99,7 +103,7 @@ ensemble_mlp_tc_kernel(const float* __restrict__ x, const unsigned char* __restr
     float* o = out + ((size_t)e * S + row0) * dh;
     for (int idx = threadIdx.x; idx < rows * dh; idx += TC_CONSUMERS) {
       const int r = idx / dh, c = idx - r * dh;
-      o[idx] = head[r * nh + c];
+      o[idx] = head_at(d, head, r, c);
     }
     consumer_sync();  // the head has been read: the next input may overwrite it
     TC_STAMP(30)
@@ -113,7 +117,7 @@ ensemble_mlp_tc_kernel(const float* __restrict__ x, const unsigned char* __restr
   {                                                                                        \
     cudaError_t err = prepare_once<ensemble_mlp_tc_kernel<ACT, BF16>>();                   \
     if (err != cudaSuccess) return err;                                                    \
-    ensemble_mlp_tc_kernel<ACT, BF16><<<grid, TC_THREADS, smem, stream>>>(__VA_ARGS__);    \
+    ensemble_mlp_tc_kernel<ACT, BF16><<<grid, TC_CHAIN_THREADS, smem, stream>>>(__VA_ARGS__);    \
   }
 
 extern "C" {

@@ -37,11 +37,23 @@ __device__ __forceinline__ float box_muller(uint4 bits) {
   return sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
 }
 
+// The standard normal of counter `ctr`. The chain's kernels draw it ahead
+// of the head (tc_chain.cu).
+__device__ __forceinline__ float head_normal(uint4 ctr, uint2 key) {
+  return box_muller(philox4x32_10(ctr, key));
+}
+
+// mean + exp(logvar / 2) * z, the logvar bounded.
+__device__ __forceinline__ float head_draw_z(float mean, float raw_lv, float max_lv, float min_lv,
+                                             float z) {
+  const float lv = bound_logvar(raw_lv, max_lv, min_lv);
+  return mean + expf(0.5f * lv) * z;
+}
+
 // One Gaussian-head output: the mean, or mean + exp(logvar / 2) * N(0, 1)
 // with the normal drawn from Philox at counter `ctr`.
 __device__ __forceinline__ float head_draw(float mean, float raw_lv, float max_lv, float min_lv,
                                            bool sample, uint4 ctr, uint2 key) {
   if (!sample) return mean;
-  const float lv = bound_logvar(raw_lv, max_lv, min_lv);
-  return mean + expf(0.5f * lv) * box_muller(philox4x32_10(ctr, key));
+  return head_draw_z(mean, raw_lv, max_lv, min_lv, head_normal(ctr, key));
 }

@@ -11,33 +11,41 @@
 
 #define TC_ROWS 64                        // rows of one tile (one wgmma M)
 #define TC_CONSUMERS 256                  // two warpgroups, each half of N
-#define TC_THREADS (TC_CONSUMERS + 32)    // + one producer warp
+#define TC_THREADS (TC_CONSUMERS + 32)    // + one producer warp (the wide route)
+#define TC_CHAIN_THREADS (TC_CONSUMERS + 128)  // the chain: + a producer warpgroup
+#define TC_NOISE_THREADS 96               // its last three warps: the kernels' normals
 #define TC_MAX_WIDTH 256                  // widest layer: N/2 <= 128 per warpgroup
 #define TC_MAX_STAGES 4
 #define TC_SMEM_LIMIT 232448              // shared memory one block can use
-#define TC_BARRIER_BYTES 128              // full[s] at 8s, empty[s] at 64 + 8s
+#define TC_BARRIER_BYTES 128              // full[s] at 8s, empty[s] at 64 + 8s,
+#define TC_NOISE_FULL 32                  // noise_full[b] at 32 + 8b,
+#define TC_NOISE_EMPTY 48                 // noise_empty[b] at 48 + 8b (b < 2)
 #define TC_BOUNDS_BYTES 1024              // the head's logvar bounds: 2 x 128 floats
 #define ACC_REGS 64                       // f32 accumulators for N = 128
+#define TC_HEAD_SPLIT 40                  // the widest (padded) head split by K
 
 // Timeline instrumentation, compiled only with -DTC_TIMELINE (see
 // ops/chain_timeline.py): warpgroup w's thread 0 of block (0, 0) writes
 // %globaltimer at mark k to tc_timeline[k + 32 w] (w = 2: the producer
-// thread); TC_STAMP_IF only where `cond` holds too. Predicated, not branched,
-// so that it leaves the wgmma pipeline as it is. Each source has its own
-// marks and its own reader.
+// thread); TC_STAMP_IF only where `cond` holds too, TC_STAMP_AT from any
+// thread where `cond` holds, to slot `slot`. Predicated, not branched, so
+// that it leaves the wgmma pipeline as it is. Each source has its own marks
+// and its own reader.
 #ifdef TC_TIMELINE
 static __device__ unsigned long long tc_timeline[96];
-#define TC_STAMP_IF(k, cond)                                                          \
+#define TC_STAMP_AT(slot, cond)                                                       \
   {                                                                                    \
     unsigned long long now;                                                            \
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));                            \
-    const int on = blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 127) == 0 &&   \
-                   (cond);                                                             \
+    const int on = blockIdx.x == 0 && blockIdx.y == 0 && (cond);                       \
     asm volatile("{\n.reg .pred p;\nsetp.ne.u32 p, %2, 0;\n@p st.global.u64 [%0], %1;\n}\n" \
-                 ::"l"(tc_timeline + (k) + 32 * (threadIdx.x >> 7)), "l"(now), "r"(on)     \
+                 ::"l"(tc_timeline + (slot)), "l"(now), "r"(on)                           \
                  : "memory");                                                          \
   }
+#define TC_STAMP_IF(k, cond) \
+  TC_STAMP_AT((k) + 32 * (threadIdx.x >> 7), (threadIdx.x & 127) == 0 && (cond))
 #else
+#define TC_STAMP_AT(slot, cond)
 #define TC_STAMP_IF(k, cond)
 #endif
 #define TC_STAMP(k) TC_STAMP_IF(k, true)
@@ -69,7 +77,8 @@ struct ChainDesc {
   int a_bytes;                     // activation region (hi, lo; later the head output)
   int stage_bytes;                 // one ring buffer: the largest chunk
   int stages;
-  int extra_off;                   // logvar bounds, then (K1) obs carry and running total
+  int extra_off;                   // logvar bounds, then the kernel's own (normals, carry)
+  int head_split;                  // the head is split by K: two partial tiles (head_at)
 };
 
 // ---------------------------------------------------------------------------
@@ -134,7 +143,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// barrier of the consumer warpgroups only (the producer warp never joins)
+// barrier of the consumer warpgroups only (the producer never joins)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(TC_CONSUMERS) : "memory");
 }
@@ -310,7 +319,104 @@ __device__ __forceinline__ void store_a2(unsigned char* a, int a_copy_bytes, int
 }
 
 // ---------------------------------------------------------------------------
-// The chain: producer warp and consumer warpgroups. `it` counts chunks over
+// A narrow head split by K. Every other product splits its columns between
+// the warpgroups; a head of at most TC_HEAD_SPLIT (padded) columns would
+// leave warpgroup 1 little or nothing, and warpgroup 0 a run of short
+// dependent instructions (75 at E's head of 8). Both warpgroups take all its
+// columns instead, warpgroup w the k-steps q = w, w + 2, ... of every chunk,
+// on its accumulators (the first instruction overwrites them, scale-d = 0);
+// the epilogue adds warpgroup 0's bias and leaves two partial tiles, which
+// head_at adds where the head is read.
+
+// This warpgroup's J k-steps of the chunk, every other one from the k-step
+// `a`/`b` point at.
+template <int N, int J, bool BF16>
+__device__ __forceinline__ void issue_split_chunk(int first, float* acc, uint32_t a, uint32_t a_lo,
+                                                 uint32_t b, uint32_t b_lo, uint32_t b_lbo) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const uint64_t da = smem_desc(a + j * 4 * (8 * 128), 8 * 128, 128);
+    const uint64_t db = smem_desc(b + j * 4 * b_lbo, b_lbo, 128);
+    const int add = !first || j > 0;
+    if constexpr (BF16) {
+      wgmma_bf16<N>(acc, da, db, add);
+    } else {  // 3xTF32, the small cross terms first
+      const uint64_t da_lo = smem_desc(a_lo + j * 4 * (8 * 128), 8 * 128, 128);
+      const uint64_t db_lo = smem_desc(b_lo + j * 4 * b_lbo, b_lbo, 128);
+      wgmma_tf32<N>(acc, da_lo, db, add);
+      wgmma_tf32<N>(acc, da, db_lo, 1);
+      wgmma_tf32<N>(acc, da, db, 1);
+    }
+  }
+}
+
+// Each case is a whole pipeline stage: fence, the products, commit.
+template <int J, bool BF16>
+__device__ __forceinline__ void issue_split_steps(int n8, int first, float* acc, uint32_t a,
+                                                  uint32_t a_lo, uint32_t b, uint32_t b_lo,
+                                                  uint32_t b_lbo) {
+  switch (n8) {
+#define TC_CASE(K)                                                                  \
+  case K:                                                                           \
+    wgmma_fence();                                                                  \
+    issue_split_chunk<8 * K, J, BF16>(first, acc, a, a_lo, b, b_lo, b_lbo);         \
+    wgmma_commit();                                                                 \
+    break;
+    TC_CASE(1) TC_CASE(2) TC_CASE(3) TC_CASE(4) TC_CASE(5)
+#undef TC_CASE
+    default:
+      wgmma_commit();
+  }
+}
+
+// This warpgroup's k k-steps of a chunk of a split head, as one commit group
+// (none: an empty group, which keeps the count).
+template <int S, bool BF16>
+__device__ __forceinline__ void issue_split(int k, int n8, int first, float* acc, uint32_t a,
+                                            uint32_t a_lo, uint32_t b, uint32_t b_lo,
+                                            uint32_t b_lbo) {
+  if constexpr (S == 0) {
+    wgmma_commit();
+  } else if (k == S) {
+    issue_split_steps<S, BF16>(n8, first, acc, a, a_lo, b, b_lo, b_lbo);
+  } else {
+    issue_split<S - 1, BF16>(k, n8, first, acc, a, a_lo, b, b_lo, b_lbo);
+  }
+}
+
+// The head's output (r, c), f32: the one tile, or the sum of the two
+// partial tiles of a head split by K (the first holds the bias).
+__device__ __forceinline__ float head_at(const ChainDesc& d, const float* head, int r, int c) {
+  const int nh = d.np[d.num_products - 1];
+  const float v = head[r * nh + c];
+  return d.head_split ? v + head[TC_ROWS * nh + r * nh + c] : v;
+}
+
+// A hidden layer's epilogue for a warpgroup of n8 <= J column groups: the
+// bias, the activation and the next product's A operand for every group
+// below J, with no branch between groups (the activations of one overlap the
+// next's), each group stored only if it is one of the n8.
+template <int J, int ACT, bool BF16>
+__device__ __forceinline__ void store_hidden(unsigned char* a_buf, int a_copy_bytes, const float* acc,
+                                             const float* bia, int n8, int n0, int dout, int r) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = n0 + 2 * (threadIdx.x & 3) + 8 * j;
+    const bool in0 = c < dout, in1 = c + 1 < dout;
+    const float b0 = bia[2 * j], b1 = bia[2 * j + 1];
+    const float y00 = in0 ? tc_activate<ACT>(acc[4 * j] + b0) : 0.0f;
+    const float y01 = in1 ? tc_activate<ACT>(acc[4 * j + 1] + b1) : 0.0f;
+    const float y10 = in0 ? tc_activate<ACT>(acc[4 * j + 2] + b0) : 0.0f;
+    const float y11 = in1 ? tc_activate<ACT>(acc[4 * j + 3] + b1) : 0.0f;
+    if (j < n8) {
+      store_a2<BF16>(a_buf, a_copy_bytes, r, c, y00, y01);
+      store_a2<BF16>(a_buf, a_copy_bytes, r + 8, c, y10, y11);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The chain: producer and consumer warpgroups. `it` counts chunks over
 // the launch on both sides, so stage = it % stages and parity = it / stages.
 
 __device__ __forceinline__ void init_barriers(const ChainDesc& d, unsigned char* smem) {
@@ -320,22 +426,40 @@ __device__ __forceinline__ void init_barriers(const ChainDesc& d, unsigned char*
       mbar_init(bars + 8 * s, 1);                        // full: the producer's expect_tx
       mbar_init(bars + 64 + 8 * s, TC_CONSUMERS / 32);   // empty: one arrive per warp
     }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bars + TC_NOISE_FULL + 8 * b, TC_NOISE_THREADS);  // every noise thread, its draws done
+      mbar_init(bars + TC_NOISE_EMPTY + 8 * b, 1);       // consumer thread 0, the normals read
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 }
 
-// Streams member `wm`'s chunks, product by product, into the ring.
+// Chunks of product i that one ring buffer holds: one, or for a head split
+// by K as many whole ones as fit (all 13 of E's f32 head of 8 columns, whose
+// 16-row chunks are 1 KB: one copy instead of a round trip of the ring each).
 template <bool BF16>
-__device__ void produce_chain(const ChainDesc& d, unsigned char* smem, const unsigned char* wm,
-                              uint32_t& it) {
+__device__ __forceinline__ int ring_chunks(const ChainDesc& d, int i) {
+  using C = TC<BF16>;
+  if (i + 1 < d.num_products || !d.head_split) return 1;
+  return max(1, d.stage_bytes / (C::CHUNK * d.np[i] * C::ESIZE * C::COPIES));
+}
+
+// Streams member `wm`'s chunks, product by product, into the ring (one
+// thread: the producer warpgroup's first), a ring buffer's worth of whole
+// chunks (ring_chunks) a copy; the packed layout holds a product's chunks in
+// order, so they are one contiguous run.
+template <bool BF16>
+__device__ __forceinline__ void produce_chain(const ChainDesc& d, unsigned char* smem,
+                                              const unsigned char* wm, uint32_t& it) {
   using C = TC<BF16>;
   const uint32_t bars = smem_u32(smem);
   const uint32_t stage0 = bars + TC_BARRIER_BYTES + d.a_bytes;
   const unsigned char* src = wm;
   for (int i = 0; i < d.num_products; ++i) {
-    for (int k0 = 0; k0 < d.kp[i]; k0 += C::CHUNK) {
-      const uint32_t bytes = min(C::CHUNK, d.kp[i] - k0) * d.np[i] * C::ESIZE * C::COPIES;
+    const int run = ring_chunks<BF16>(d, i) * C::CHUNK;
+    for (int k0 = 0; k0 < d.kp[i]; k0 += run) {
+      const uint32_t bytes = min(run, d.kp[i] - k0) * d.np[i] * C::ESIZE * C::COPIES;
       const int s = it % d.stages;
       mbar_wait(bars + 64 + 8 * s, ((it / d.stages) & 1) ^ 1);
       mbar_expect_tx(bars + 8 * s, bytes);
@@ -346,13 +470,86 @@ __device__ void produce_chain(const ChainDesc& d, unsigned char* smem, const uns
   }
 }
 
+// The last product, a head split by K (d.head_split), for warpgroup `wg`:
+// both warpgroups take all its columns and every other k-step, and leave
+// two partial (TC_ROWS, np) f32 tiles at the start of the A region. A ring
+// buffer holds as many whole chunks of it as fit (ring_chunks), each chunk
+// one commit group. Ends with a consumer barrier.
+template <bool BF16>
+__device__ __forceinline__ void consume_split_head(const ChainDesc& d, unsigned char* smem,
+                                                   const float* bias, int wg, uint32_t& it) {
+  using C = TC<BF16>;
+  const uint32_t bars = smem_u32(smem);
+  const uint32_t a_addr = bars + TC_BARRIER_BYTES;
+  const uint32_t stage0 = a_addr + d.a_bytes;
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int i = d.num_products - 1, kp = d.kp[i], np = d.np[i], n8 = np / 8;
+  const uint32_t b_lbo = np * 16;
+  // warpgroup 0's biases, loaded now so that the loads overlap the products
+  const float* b = bias + d.b_off[i];
+  const int dout = wg ? 0 : d.dims[i + 1];
+  float bia[TC_HEAD_SPLIT / 4];
+#pragma unroll
+  for (int j = 0; j < TC_HEAD_SPLIT / 8; ++j) {
+    const int c = 2 * (lane & 3) + 8 * j;
+    bia[2 * j] = c < dout ? __ldg(b + c) : 0.0f;
+    bia[2 * j + 1] = c + 1 < dout ? __ldg(b + c + 1) : 0.0f;
+  }
+  float acc[TC_HEAD_SPLIT / 2];
+  const int run = ring_chunks<BF16>(d, i) * C::CHUNK;  // K rows a ring buffer holds
+  const uint32_t chunk_bytes = C::CHUNK * np * C::ESIZE * C::COPIES;
+  int prev = -1;  // the previous ring buffer, freed once its products are done
+  for (int k0 = 0; k0 < kp; k0 += run) {
+    const int s = it % d.stages;
+    mbar_wait(bars + 8 * s, (it / d.stages) & 1);
+    for (int k1 = k0; k1 < min(k0 + run, kp); k1 += C::CHUNK) {
+      const int steps = min(C::CHUNK, kp - k1) / C::KSTEP;
+      const uint32_t st = stage0 + s * d.stage_bytes + (k1 - k0) / C::CHUNK * chunk_bytes +
+                          wg * 2 * b_lbo;
+      const uint32_t lo = min(C::CHUNK, kp - k1) * np * C::ESIZE;  // the lo block follows hi
+      const uint32_t a = a_addr + (k1 / C::T) * (8 * 128) + wg * 2 * (8 * 128);
+      issue_split<(C::CHUNK / C::KSTEP + 1) / 2, BF16>((steps + 1 - wg) / 2, n8, k1 == 0, acc, a,
+                                                      a + d.a_copy_bytes, st, st + lo, b_lbo);
+      wgmma_wait<1>();  // the previous group is done: on a buffer's first, free the last buffer
+      mbar_arrive(bars + 64 + 8 * max(prev, 0), lane == 0 && prev >= 0 && k1 == k0);
+    }
+    prev = s;
+    ++it;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < TC_HEAD_SPLIT / 2; ++j) asm volatile("" : "+f"(acc[j])::"memory");
+  TC_STAMP(3 + 3 * i)
+  mbar_arrive(bars + 64 + 8 * prev, lane == 0);
+  consumer_sync();  // every warp's products have read A before it is overwritten
+  TC_STAMP(4 + 3 * i)
+  // warpgroup 1 has nothing if the first chunk had no k-step for it
+  const bool any = wg < min(C::CHUNK, kp) / C::KSTEP;
+  float* out = reinterpret_cast<float*>(smem + TC_BARRIER_BYTES) + wg * TC_ROWS * np;
+#pragma unroll
+  for (int j = 0; j < TC_HEAD_SPLIT / 8; ++j) {
+    if (j < n8) {
+      const int c = 2 * (lane & 3) + 8 * j;
+      const float b0 = bia[2 * j], b1 = bia[2 * j + 1];
+      *reinterpret_cast<float2*>(out + r * np + c) =
+          any ? make_float2(acc[4 * j] + b0, acc[4 * j + 1] + b1) : make_float2(0.0f, 0.0f);
+      *reinterpret_cast<float2*>(out + (r + 8) * np + c) =
+          any ? make_float2(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1) : make_float2(0.0f, 0.0f);
+    }
+  }
+  consumer_sync();
+  TC_STAMP(5 + 3 * i)
+}
+
 // Runs the member's chain on the tile in the A region (written and fenced by
 // the caller). Hidden layers leave their output in A; the head leaves
-// (TC_ROWS, np[last]) f32 at the start of the A region. Ends with a consumer
-// barrier.
+// (TC_ROWS, np[last]) f32 at the start of the A region (two partial tiles if
+// d.head_split: consume_split_head; read it with head_at). Ends with a
+// consumer barrier.
 template <int ACT, bool BF16>
-__device__ void consume_chain(const ChainDesc& d, unsigned char* smem, const float* bias,
-                              uint32_t& it) {
+__device__ __forceinline__ void consume_chain(const ChainDesc& d, unsigned char* smem,
+                                              const float* bias, uint32_t& it) {
   using C = TC<BF16>;
   const uint32_t bars = smem_u32(smem);
   unsigned char* a_buf = smem + TC_BARRIER_BYTES;
@@ -363,7 +560,7 @@ __device__ void consume_chain(const ChainDesc& d, unsigned char* smem, const flo
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
   const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   float acc[ACC_REGS];
-  for (int i = 0; i < d.num_products; ++i) {
+  for (int i = 0; i < d.num_products - d.head_split; ++i) {
     const int kp = d.kp[i], np = d.np[i];
     const int half = (np / 8 + 1) / 2;  // warpgroup 0's 8-column groups
     const int n8 = wg ? np / 8 - half : half, n0 = wg ? 8 * half : 0;
@@ -383,6 +580,7 @@ __device__ void consume_chain(const ChainDesc& d, unsigned char* smem, const flo
       const int kc = min(C::CHUNK, kp - k0);
       const int s = it % d.stages;
       mbar_wait(bars + 8 * s, (it / d.stages) & 1);
+      TC_STAMP_IF(27, i == 0 && k0 == 0)  // the chain's first chunk landed
       const uint32_t st = stage0 + s * d.stage_bytes + n0 * 16;
       const uint32_t lo = kc * np * C::ESIZE;  // the lo block follows the hi block
       const uint32_t a = a_addr + (k0 / C::T) * (8 * 128);
@@ -399,14 +597,31 @@ __device__ void consume_chain(const ChainDesc& d, unsigned char* smem, const flo
     consumer_sync();  // every warp's products have read A before it is overwritten
     TC_STAMP(4 + 3 * i)
     if (i + 1 < d.num_products) {
-      for_each_acc(acc, n8, n0, [&](int j, float v00, float v01, float v10, float v11, int c) {
-        const bool in0 = c < dout, in1 = c + 1 < dout;
-        const float b0 = bia[2 * j], b1 = bia[2 * j + 1];
-        store_a2<BF16>(a_buf, d.a_copy_bytes, r, c, in0 ? tc_activate<ACT>(v00 + b0) : 0.0f,
-                       in1 ? tc_activate<ACT>(v01 + b1) : 0.0f);
-        store_a2<BF16>(a_buf, d.a_copy_bytes, r + 8, c, in0 ? tc_activate<ACT>(v10 + b0) : 0.0f,
-                       in1 ? tc_activate<ACT>(v11 + b1) : 0.0f);
-      });
+      if constexpr (BF16) {
+        // compiled for a few widths, a warpgroup's columns rounded up to one
+        // (a 208-wide layer: 13 groups on each); in f32 this measured slower
+        // than the loop below
+        if (n8 <= 4) {
+          store_hidden<4, ACT, BF16>(a_buf, d.a_copy_bytes, acc, bia, n8, n0, dout, r);
+        } else if (n8 <= 8) {
+          store_hidden<8, ACT, BF16>(a_buf, d.a_copy_bytes, acc, bia, n8, n0, dout, r);
+        } else if (n8 <= 12) {
+          store_hidden<12, ACT, BF16>(a_buf, d.a_copy_bytes, acc, bia, n8, n0, dout, r);
+        } else if (n8 == 13) {
+          store_hidden<13, ACT, BF16>(a_buf, d.a_copy_bytes, acc, bia, n8, n0, dout, r);
+        } else {
+          store_hidden<16, ACT, BF16>(a_buf, d.a_copy_bytes, acc, bia, n8, n0, dout, r);
+        }
+      } else {
+        for_each_acc(acc, n8, n0, [&](int j, float v00, float v01, float v10, float v11, int c) {
+          const bool in0 = c < dout, in1 = c + 1 < dout;
+          const float b0 = bia[2 * j], b1 = bia[2 * j + 1];
+          store_a2<BF16>(a_buf, d.a_copy_bytes, r, c, in0 ? tc_activate<ACT>(v00 + b0) : 0.0f,
+                         in1 ? tc_activate<ACT>(v01 + b1) : 0.0f);
+          store_a2<BF16>(a_buf, d.a_copy_bytes, r + 8, c, in0 ? tc_activate<ACT>(v10 + b0) : 0.0f,
+                         in1 ? tc_activate<ACT>(v11 + b1) : 0.0f);
+        });
+      }
       TC_STAMP(18 + min(i, 3))  // the first four epilogues' stores issued
       fence_proxy_async();
       TC_STAMP(22 + min(i, 3))  // and fenced for the next product
@@ -421,6 +636,7 @@ __device__ void consume_chain(const ChainDesc& d, unsigned char* smem, const flo
     consumer_sync();
     TC_STAMP(5 + 3 * i)
   }
+  if (d.head_split) consume_split_head<BF16>(d, smem, bias, wg, it);
 }
 
 // ---------------------------------------------------------------------------
@@ -455,7 +671,9 @@ static bool make_chain_desc(const int* dims, int num_products, int extra_bytes, 
   d->w_member = w;
   d->b_member = b;
   d->a_copy_bytes = TC_ROWS * kmax * C::ESIZE;
-  const int head_bytes = TC_ROWS * d->np[num_products - 1] * (int)sizeof(float);
+  d->head_split = d->np[num_products - 1] <= TC_HEAD_SPLIT;
+  const int head_bytes =
+      TC_ROWS * d->np[num_products - 1] * (int)sizeof(float) * (d->head_split ? 2 : 1);
   const int a_bytes = C::COPIES * d->a_copy_bytes;
   d->a_bytes = round_up(a_bytes > head_bytes ? a_bytes : head_bytes, 128);
   d->stage_bytes = stage;

@@ -81,6 +81,9 @@ MAX_TILE = 64
 TC_MAX_WIDTH = 256
 TC_MAX_STAGES = 4
 TC_SMEM_BYTES = 232_448
+# the widest (padded) head the chain splits by K over its two warpgroups,
+# which then leave two partial (MAX_TILE, n_pad) f32 tiles
+TC_HEAD_SPLIT = 40
 # output columns of one pass of the wide tensor-core route (csrc/wide_tc.cuh)
 WIDE_PASS = 256
 
@@ -198,12 +201,18 @@ class ChainLayout:
     def member_elems(self) -> int:
         return self.product_offset(len(self.dims) - 1)
 
+    @functools.cached_property
+    def head_split(self) -> bool:
+        """Whether the chain splits the head by K (two partial tiles)."""
+        return self.n_pad[-1] <= TC_HEAD_SPLIT
+
     @functools.lru_cache(maxsize=None)
     def stages(self, extra_bytes: int = 0) -> int:
         """Chunk buffers that fit in shared memory beside the activation tile
         (hi and lo copies, also holding the head output) and ``extra_bytes``."""
         rows = MAX_TILE
-        a = max(self.copies * rows * max(self.k_pad) * self.esize, rows * self.n_pad[-1] * 4)
+        head = rows * self.n_pad[-1] * 4 * (2 if self.head_split else 1)
+        a = max(self.copies * rows * max(self.k_pad) * self.esize, head)
         stage = max(min(self.chunk, k) * n * self.esize * self.copies
                     for k, n in zip(self.k_pad, self.n_pad))
         # barriers (128 bytes) and the logvar bounds (1 KB) besides
@@ -347,11 +356,25 @@ def supports_fused_mlp(dims: Sequence[int]) -> bool:
     return len(dims) >= 2 and all(d >= 1 for d in dims)
 
 
+def k2_extra_bytes(out_size: int) -> int:
+    """Shared memory K2 takes on the chain beside the stack's plan: a tile's
+    (MAX_TILE, out_size) f32 normals."""
+    return 4 * MAX_TILE * out_size
+
+
+def k1_extra_bytes(obs_dim: int, out_size: int) -> int:
+    """Shared memory K1 takes on the chain beside the stack's plan: the obs
+    carry and running return, (MAX_TILE, obs_dim + 1) f32, and two buffers
+    of a step's normals."""
+    return 4 * MAX_TILE * (obs_dim + 1 + 2 * out_size)
+
+
 def takes_chain(dims: Sequence[int], low_precision: bool, extra_bytes: int = 0) -> bool:
     """Whether the tensor-core chain takes this stack (else the wide route
     does): at most ``MAX_PRODUCTS`` products of widths up to ``TC_MAX_WIDTH``,
     and room for two weight chunks beside the activation tile and
-    ``extra_bytes`` (K1's obs carry). Mirrors ``make_chain_desc``'s refusal."""
+    ``extra_bytes`` (:func:`k2_extra_bytes`, :func:`k1_extra_bytes`). Mirrors
+    ``make_chain_desc``'s refusal."""
     dims = tuple(dims)
     return (1 <= len(dims) - 1 <= MAX_PRODUCTS and all(1 <= d <= TC_MAX_WIDTH for d in dims)
             and ChainLayout(dims, low_precision).stages(extra_bytes) >= 2)
@@ -663,8 +686,9 @@ def fused_ensemble_mlp_gaussian(
     """K2: one rollout step, (E, S, in) → (E, S, out_size): a draw from the
     bounded Gaussian head (two seed words from ``generator`` key the kernel's
     Philox), or the head's mean when ``sample=False``. ``tiles`` is
-    ``pack_tiles(stack)`` (the chain's or the wide route's), packed here when
-    not given (pack once per rollout or model state)."""
+    ``pack_tiles(stack, k2_extra_bytes(out_size))`` (the chain's or the wide
+    route's), packed here when not given (pack once per rollout or model
+    state)."""
     if not _dispatch(x):
         return fused_ensemble_mlp_gaussian_plain(
             generator, x, stack, max_logvar, min_logvar, out_size, sample
@@ -679,7 +703,7 @@ def fused_ensemble_mlp_gaussian(
         raise ValueError(f"x {tuple(x.shape)} / out_size {out_size} do not match stack dims {stack.dims}")
     if max_logvar.numel() != out_size or min_logvar.numel() != out_size:
         raise ValueError("logvar bounds must have out_size entries")
-    tiles = _check_tiles(stack, tiles, x.device)
+    tiles = _check_tiles(stack, tiles, x.device, extra_bytes=k2_extra_bytes(out_size))
     s0, s1 = seed_words(generator, 2)
     out = torch.empty((e, rows, out_size), dtype=torch.float32, device=x.device)
     lib = load_library()
@@ -720,9 +744,9 @@ def fused_rollout_returns(
     rot_tiles (H,) int: cumulative tile-granular rotations; obs0_rows (B, D);
     acts_rows (B, H, A); delta_mask (1, D), 1 where the target is a delta.
     Requires D == out_size - 1, tile <= 64 dividing B into a multiple of E tiles.
-    ``tiles`` is ``pack_tiles(stack, 4 * MAX_TILE * (D + 1))`` (the chain's
-    or the wide route's; K1's obs carry counts for the chain), packed here
-    when not given.
+    ``tiles`` is ``pack_tiles(stack, k1_extra_bytes(D, out_size))`` (the
+    chain's or the wide route's; K1's obs carry and normals count for the
+    chain), packed here when not given.
     """
     if not _dispatch(obs0_rows):
         return fused_rollout_returns_plain(
@@ -751,7 +775,7 @@ def fused_rollout_returns(
                 delta_mask=delta_mask, max_logvar=max_logvar, min_logvar=min_logvar)
     dev = obs0_rows.device
     _check_stack(stack, dev)
-    tiles = _check_tiles(stack, tiles, dev, extra_bytes=4 * MAX_TILE * (obs_dim + 1))
+    tiles = _check_tiles(stack, tiles, dev, extra_bytes=k1_extra_bytes(obs_dim, out_size))
     s0, s1 = seed_words(generator, 2)
     out = torch.empty((batch, 1), dtype=torch.float32, device=dev)
     lib = load_library()

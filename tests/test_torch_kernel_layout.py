@@ -9,8 +9,10 @@ shared-memory layout; for an f32 stack, as two tf32 copies (hi, lo) for
 - the tf32 split: hi keeps 10 mantissa bits, rounded to nearest with ties away
   from zero as ``cvt.rna.tf32.f32``, and hi + lo is within 2^-21 relative of w;
 - a plain-torch emulation of the 3xTF32 chain (a_hi w_hi + a_hi w_lo + a_lo w_hi
-  on the packed tf32 values, rounding done on the bits) against the JAX f32
-  kernel in interpret mode and against ``fused_ensemble_mlp_plain``.
+  on the packed tf32 values, rounding done on the bits, the accumulator sets
+  and the head's split by K summed in the kernels' order) against the JAX f32
+  kernel in interpret mode and against ``fused_ensemble_mlp_plain``;
+- the shared-memory plan of a head split by K and of K1's and K2's normals.
 
 Tolerance of the emulation, 1e-5 (|diff| <= atol + rtol |ref|): 3xTF32 drops
 a_lo w_lo and rounds lo to tf32, ~2^-22 relative per product term; over a
@@ -72,18 +74,56 @@ def test_main_shapes_pad_to_the_instruction(low_precision):
     else:  # K to the tf32 depth 8
         assert lay.k_pad == (24, 200, 200, 200, 200)
         assert lay.n_pad == (200, 200, 200, 200, 40)
-    # K1's shared-memory plan (obs carry of 17) leaves room for the ring
+    # K1's shared-memory plan (obs carry of 17) leaves room for the ring,
+    # also with its two buffers of a step's normals; so does K2's
     assert lay.stages(4 * tk.MAX_TILE * 18) >= 2
+    assert lay.stages(tk.k1_extra_bytes(17, 18)) >= 2 and lay.stages(tk.k2_extra_bytes(18)) >= 2
+    assert lay.head_split  # a 40-column head is split by K over the warpgroups
 
 
 @pytest.mark.parametrize("low_precision", [False, True], ids=["f32", "bf16"])
 def test_deterministic_head_pads_to_24_columns(low_precision):
-    """Head 18 is padded to 24 columns (three 8-column groups, split 2 + 1
-    between the warpgroups), and the head tile fits the activation region."""
+    """Head 18 is padded to 24 columns (three 8-column groups, all taken by
+    each warpgroup: the head is split by K), and the two partial head tiles
+    fit the activation region."""
     lay = tk.ChainLayout(DET_DIMS, low_precision)
     assert lay.n_pad[-1] == 24 and lay.n_pad[:-1] == lay.k_pad[1:]
-    assert lay.stages() >= 2
-    assert tk.MAX_TILE * lay.n_pad[-1] * 4 <= lay.copies * tk.MAX_TILE * max(lay.k_pad) * lay.esize
+    assert lay.head_split and lay.stages() >= 2
+    assert 2 * tk.MAX_TILE * lay.n_pad[-1] * 4 <= lay.copies * tk.MAX_TILE * max(lay.k_pad) * lay.esize
+
+
+def _smem_plan(dims, low_precision, extra):
+    """make_chain_desc's plan, written out: barriers, the activation region
+    (or the head's tiles, two if split by K), the logvar bounds, ``extra``,
+    and as many ring buffers of the largest chunk as fit (at most 4)."""
+    esize, copies, step, chunk = (2, 1, 16, 64) if low_precision else (4, 2, 8, 16)
+    kp = [-(-d // step) * step for d in dims[:-1]]
+    np_ = kp[1:] + [-(-dims[-1] // 8) * 8]
+    head = 64 * np_[-1] * 4 * (2 if np_[-1] <= 40 else 1)
+    a = -(-max(copies * 64 * max(kp) * esize, head) // 128) * 128
+    stage = max(min(chunk, k) * n * esize * copies for k, n in zip(kp, np_))
+    return min(4, (232_448 - 128 - 1024 - a - extra) // stage)
+
+
+@pytest.mark.parametrize("low_precision", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dims", [(8, 16, 40), (8, 16, 48), (5, 200, 8), (24, 256, 256, 36),
+                                  (24, 256, 256, 256), (23, 256, 256, 254), (7, 13, 30, 10)],
+                         ids=["split40", "n48", "head8", "widest36", "head256", "k1_254",
+                              "ragged"])
+def test_head_split_and_normals_in_the_shared_memory_plan(dims, low_precision):
+    """A head of at most TC_HEAD_SPLIT (padded) columns is split by K and
+    takes two tiles; K2's normals and K1's carry and two buffers of normals
+    come out of the ring's room, as make_chain_desc plans it."""
+    lay = tk.ChainLayout(dims, low_precision)
+    assert lay.head_split == (lay.n_pad[-1] <= tk.TC_HEAD_SPLIT)
+    out = dims[-1] // 2
+    for extra in (0, tk.k2_extra_bytes(out), tk.k1_extra_bytes(out - 1, out)):
+        assert lay.stages(extra) == _smem_plan(dims, low_precision, extra)
+        assert tk.takes_chain(dims, low_precision, extra) == (lay.stages(extra) >= 2)
+    # at 256 columns in f32 K1's normals leave too little room: the wide route
+    if dims == (23, 256, 256, 254) and not low_precision:
+        assert tk.takes_chain(dims, False, 4 * tk.MAX_TILE * 128)
+        assert not tk.takes_chain(dims, False, tk.k1_extra_bytes(126, 127))
 
 
 @pytest.mark.parametrize("dtype,k_rows,scale", [(torch.float32, 40, 32), (torch.bfloat16, 15, 16)],
@@ -126,10 +166,35 @@ def test_tf32_split():
     assert tk.rna_tf32(tie).view(torch.int32).tolist() == [0x3F802000, -0x407FE000]
 
 
+def _kernel_sum(a_hi, a_lo, w_hi, w_lo, b, split: bool):
+    """One product as the f32 chain sums it. Each wgmma (k-step g of 8 rows,
+    3xTF32 term t: a_lo w_hi, a_hi w_lo, a_hi w_hi) adds its exact product
+    to the accumulators, rounded to f32 at the end, then the bias is added.
+    Split by K (a narrow head; chunks of two k-steps): warpgroup g % 2 takes
+    k-step g on accumulators of its own, warpgroup 0 adds the bias, and the
+    head is warpgroup 0's tile + warpgroup 1's."""
+    terms = ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi))
+    parts = {}
+    for g in range(w_hi.shape[-2] // 8):
+        rows = slice(8 * g, 8 * g + 8)
+        for t, (a, w) in enumerate(terms):
+            key = (g % 2, 0) if split else (0, 0)
+            parts[key] = parts.get(key, 0) + a[..., rows] @ w[..., rows, :]
+    total = None
+    for wg in range(2 if split else 1):
+        part = torch.zeros_like(parts[(0, 0)], dtype=torch.float32)
+        for k, s in enumerate(sorted(k for k in parts if k[0] == wg)):
+            part = parts[s].float() if k == 0 else part + parts[s].float()
+        part = part + b if wg == 0 else part
+        total = part if total is None else total + part
+    return total
+
+
 def _emulated_3xtf32_chain(x: torch.Tensor, stack: tk.MLPStack) -> torch.Tensor:
     """The f32 kernels' arithmetic in plain torch: each product as
     a_hi w_hi + a_hi w_lo + a_lo w_hi on the packed tf32 copies (exact
-    products, summed in f64), then bias and activation in f32."""
+    products), summed in the kernels' order with the bias
+    (:func:`_kernel_sum`), then the activation in f32."""
     tiles = tk.pack_chain(stack)
     act = tk.ACTIVATIONS[stack.activation]
     h = x.float()
@@ -139,9 +204,11 @@ def _emulated_3xtf32_chain(x: torch.Tensor, stack: tk.MLPStack) -> torch.Tensor:
         a = F.pad(h, (0, tiles.layout.k_pad[i] - h.shape[-1]))
         a_hi = tk.rna_tf32(a)
         a_lo = tk.rna_tf32(a - a_hi)
-        a_hi, a_lo = a_hi.double(), a_lo.double()
-        out = (a_hi @ w_hi + a_hi @ w_lo + a_lo @ w_hi).float()[..., : stack.dims[i + 1]] + b
-        h = act(out) if i < stack.num_products - 1 else out
+        head = i == stack.num_products - 1
+        b = F.pad(b, (0, tiles.layout.n_pad[i] - b.shape[-1]))
+        out = _kernel_sum(a_hi.double(), a_lo.double(), w_hi, w_lo, b,
+                          head and tiles.layout.head_split)[..., : stack.dims[i + 1]]
+        h = out if head else act(out)
     return h
 
 
