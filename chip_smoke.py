@@ -12,7 +12,9 @@ in ``wide_tc.cu``, K3's ``ensemble_mlp_wide_tc_kernel`` in
 ``ensemble_mlp_wide.cu``). Holds each against its
 plain PyTorch version at the main paths' shapes (f32 and bf16; K3 at 8,000
 rows with a Gaussian and with a deterministic head, at 100,000 rows and at
-config M's 80,000; K2, mean path and samples, at the shapes of configs B and
+config M's 80,000 on its two-tile route, at one row a member on its cluster
+route, and on each side of the routes' limits: 64 and 65 rows a member and
+1,700, an odd 27 tiles a member; K2, mean path and samples, at the shapes of configs B and
 E, of MPPI and of each of iCEM's populations; every activation at 200 and 300
 columns; widths 256 to 1024 and a 12-product chain; the wide route timed at
 512 columns, K3 there at 8,000 and 100,000 rows) and times both, then drives
@@ -171,14 +173,14 @@ TOL = {
     ("K3", "f32"): 1e-4, ("K2", "f32"): 1e-4, ("K1", "f32"): 1e-3,
     ("K3", "bf16"): 2e-2, ("K2", "bf16"): 2e-2, ("K1", "bf16"): 5e-2,
 }
-# each chain row's ms in PR 11's archive run of this script (H100 80GB HBM3,
-# 700 W), before the chain's redesign: (main-path dtype, other dtype)
-PR11_MS = {
-    "K1": (0.7041, 1.2003), "K2": (0.04188, 0.02407), "K2@E": (0.03821, 0.02110),
-    "K2@MPPI": (0.04199, 0.02408), "K2@iCEM": (0.03806, 0.02094), "K3": (0.03991, 0.02172),
-    "K3@C100k": (0.4515, 0.2344), "K3@D": (0.03961, 0.02145), "K3@M": (0.3652, 0.1897),
-    "K3@CL-A": (0.02035, 0.03838), "K3@CL-B": (0.03792, 0.02020), "K3@DG": (0.03650, 0.01974),
-    "K2@TUT": (0.02167, 0.01340),
+# each chain row's ms in PR 12's run of this script (H100 80GB HBM3, 700 W),
+# before K3's chain was redesigned: (main-path dtype, other dtype)
+PR12_MS = {
+    "K1": (0.6328, 1.129), "K2": (0.03877, 0.02138), "K2@E": (0.03543, 0.01857),
+    "K2@MPPI": (0.03889, 0.02100), "K2@iCEM": (0.03487, 0.01837), "K3": (0.03655, 0.02006),
+    "K3@C100k": (0.4184, 0.2141), "K3@D": (0.03606, 0.01994), "K3@M": (0.3287, 0.1684),
+    "K3@CL-A": (0.01883, 0.03511), "K3@CL-B": (0.03466, 0.01849), "K3@DG": (0.03343, 0.01827),
+    "K2@TUT": (0.01992, 0.01200),
 }
 REPLACES = {
     "K1": "mbrl_tpu/ops/pallas_kernels.py:223 (fused_rollout_returns -> _rollout_kernel :141, pallas_call :299)",
@@ -289,9 +291,14 @@ def check_k3(K, x, stack, dt_name: str, what: str):
     flops = 2.0 * e * rows * macs_per_row(stack.dims)
     nbytes = stack_bytes(stack) + x.numel() * 4 + got.numel() * 4
     bms, bby = bound(flops, nbytes, stack.low_precision)
+    sms = K.sm_count(x.device)
+    if isinstance(tiles.layout, K.WideTileLayout):
+        route, blocks = "wide", K.persistent_blocks(rows, e, sms)
+    else:
+        route = K.k3_route(rows, e, sms, stack.low_precision)
+        blocks = K.k3_blocks(route, rows, e, sms)
     return {
-        "max_abs_err": err, "tol": tol, "rows": e * rows,
-        "blocks": K.persistent_blocks(rows, e, K.sm_count(x.device)),
+        "max_abs_err": err, "tol": tol, "rows": e * rows, "route": route, "blocks": blocks,
         "ms": time_graph_ms(lambda: K.fused_ensemble_mlp(x, stack, tiles=tiles), 20),
         "eager_ms": time_ms(lambda: K.fused_ensemble_mlp(x, stack, tiles=tiles), 20),
         "plain_ms": time_ms(lambda: K.fused_ensemble_mlp_plain(x, stack), 10),
@@ -444,6 +451,12 @@ def kernel_checks():
         # K3 at config D's shape: the same rows into a deterministic head (18 columns)
         det, _, _ = elite_stack(OBS_B + ACT, OBS_B, dtype, g, deterministic=True)
         results[("K3@D", dt_name)] = check_k3(K, x, det, dt_name, "D")
+        # K3 on each side of its routes' limits: S = 64 (one tile a block) and
+        # 65 (two tiles a member), and 1,700 rows (27 tiles a member, an odd
+        # count: 135 tiles, past one wave, on the two-tile route)
+        for name, n in (("S64", 64), ("S65", 65), ("x1700", 1_700)):
+            xs = torch.randn((ELITES, n, OBS_B + ACT), generator=g).to(dev)
+            results[(f"K3@{name}", dt_name)] = check_k3(K, xs, stack, dt_name, name)
 
         results[("K2", dt_name)] = check_k2(K, g, x, stack, max_lv, min_lv, dt_name, "B")
         # MPPI's population on the same model: 350 x 20 / 5 = 1,400 rows
@@ -746,10 +759,16 @@ def plan_config(name: str, device: str = "cuda", hid: int = HID, acts: int = 3):
     return times
 
 
-# the CUDA kernels of K1, K2 and K3: on the chain, then on the wide route
+# the CUDA kernels of K1, K2 and K3: on the chain, then on the wide route,
+# then K3's two other chain routes (kernels.k3_route: two tiles a block, a
+# cluster a member)
 PORT_KERNELS = ("rollout_returns_tc_kernel", "gaussian_tc_kernel", "ensemble_mlp_tc_kernel",
                 "rollout_returns_wide_tc_kernel", "gaussian_wide_tc_kernel",
-                "ensemble_mlp_wide_tc_kernel")
+                "ensemble_mlp_wide_tc_kernel", "ensemble_mlp_pair_kernel",
+                "ensemble_mlp_cluster_kernel")
+# K3's kernel on each of its routes (check_k3's "route")
+K3_KERNELS = {"tile": "ensemble_mlp_tc_kernel", "pair": "ensemble_mlp_pair_kernel",
+              "cluster": "ensemble_mlp_cluster_kernel", "wide": "ensemble_mlp_wide_tc_kernel"}
 
 
 def device_busy(name: str, acts: int = 2, hid: int = HID):
@@ -3442,19 +3461,20 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
         results[("K1@CL-A", dt)], results[("K2@CL-B", dt)] = results[("K1", dt)], results[("K2", dt)]
         results[("K2@DG", dt)] = results[("K2@E", dt)]
         results[("K2@POOL-E", dt)], results[("K3@POOL-M", dt)] = results[("K2@E", dt)], results[("K3@M", dt)]
-    stated = ("tol", "rows", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
-    pr11 = {k: {dt: [results[(k, dt)]["ms"], PR11_MS[k][dt != rows[k][1]]] for dt in ("f32", "bf16")}
-            for k in PR11_MS}
-    print("chain rows, ms now and in PR 11: " + json.dumps(pr11), flush=True)
+    stated = ("tol", "rows", "route", "blocks", "rows_per_member")  # not measured: printed with the per-dtype rows above
+    pr12 = {k: {dt: [results[(k, dt)]["ms"], PR12_MS[k][dt != rows[k][1]]] for dt in ("f32", "bf16")}
+            for k in PR12_MS}
+    print("chain rows, ms now and in PR 12: " + json.dumps(pr12), flush=True)
     line = []
     for k, (wrapper, dtype, launches, src) in rows.items():
         r = results[(k, dtype)]
         other = "f32" if dtype == "bf16" else "bf16"
         base = k.split("@")[0]
-        route_kernels = PORT_KERNELS[3:] if src in wide_src.values() else PORT_KERNELS[:3]
+        route_kernels = PORT_KERNELS[3:6] if src in wide_src.values() else PORT_KERNELS[:3]
         line.append({
             "name": f"{wrapper} ({k}, {dtype})",
-            "kernel": route_kernels[("K1", "K2", "K3").index(base)],
+            "kernel": (K3_KERNELS[r["route"]] if base == "K3"
+                       else route_kernels[("K1", "K2").index(base)]),
             "route": "cuda",
             "source": src,
             "replaces": REPLACES[base],

@@ -1,56 +1,97 @@
-// The equal-shard ensemble forward K3 on Hopper's tensor cores (sm_90a),
-// written by hand.
+// The equal-shard ensemble forward K3 on Hopper (sm_90a), written by hand.
 //
 // Replaces the Pallas TPU kernel fused_ensemble_mlp / _kernel of
 // mbrl_tpu/ops/pallas_kernels.py (member m runs its own MLP chain over its own
 // contiguous shard of rows; the head comes out raw). It is the step of
-// ModelEnv.step -> GaussianMLP._forward_sharded, at anything from a planner's
+// ModelEnv.step -> GaussianMLP._forward_sharded, at anything from one row a
+// member (the closed loop's act-env step, the Visualizer) through a planner's
 // 8,000 rows to a policy-training rollout's 100,000, and the per-step rollout
 // of a deterministic head.
 //
-// What bounds it: operations. A row costs 131,800 MACs at the PETS widths
-// against 23 input and 36 output floats, and a member's weights (264 KB bf16,
-// 2 x 527 KB as tf32 hi/lo pairs) are read from L2, not device memory, after
-// the first tile.
+// What bounds it: operations, and at one row a member the latency of one
+// member's chain. A row costs 131,800 MACs at the PETS widths against 23
+// input and 36 output floats; a member's weights (264 KB bf16, 2 x 527 KB as
+// tf32 hi/lo pairs) are read from L2, not device memory, after the first tile.
 //
-// Design.
-// - The products are K2's: produce_chain() on the producer warpgroup's first
-//   thread (its other warps idle: K3 draws no normals) and
-//   consume_chain() on two consumer warpgroups (tc_chain.cuh; the design notes
-//   are at the top of tc_chain.cu): weights pre-packed by pack_chain in
-//   wgmma's layout, landed by 1-D bulk copies through the mbarrier ring, bf16
-//   m64nNk16 or 3xTF32 m64nNk8 products with f32 accumulators, epilogues in
-//   registers. bf16 stacks round the input and every hidden activation to
-//   bf16, where the TPU kernel rounds them.
-// - Persistent blocks. The work is the member-major list of (member, 64-row
-//   tile) pairs. The grid is min(pairs, SMs) blocks (one block fills an SM's
-//   shared memory), and block b walks pairs b, b + blocks, ..., so the
-//   blocks' shares differ by at most one tile whatever E is (ops/kernels.py:
-//   persistent_blocks and block_tiles mirror the schedule). The barriers are
-//   set up once; the ring's chunk counter runs on across tiles on both sides,
-//   so while the consumers write a head out and stage the next input tile the
-//   producer is already landing the next tile's first chunks. At one wave
-//   (8,000 rows: 125 pairs) this is one tile a block.
-// - The raw-head epilogue: consume_chain leaves the head's (64, n_pad) f32
-//   tile (a narrow head: two partial tiles, added by head_at) at the start
-//   of the A region; the consumers copy its first head_out columns of the
-//   tile's real rows to out, which is contiguous for a tile, so the stores
-//   coalesce. The A region is also the next tile's input, hence
-//   the consumer barrier between the copy and the next staging.
-// - Every loop bound of the tile loop is block-uniform (blockIdx, gridDim and
-//   kernel arguments), on the producer's side and the consumers' alike: both
-//   count the same chunks, and ptxas sees no divergent path around the wgmma.
+// Three routes, picked by the shape (ops/kernels.py: k3_route mirrors the
+// choice, k3_blocks the grid; the entry checks both):
+// - One tile a block (K3_TILE), while the (member, 64-row tile) pairs fit in
+//   one wave (8,000 rows: 125 of 132 SMs). The products are K2's:
+//   produce_chain() on the producer warpgroup's first thread and
+//   consume_chain() on two consumer warpgroups, each half of N (tc_chain.cuh;
+//   the design notes are at the top of tc_chain.cu). The work is the
+//   member-major list of (member, tile) pairs; block b walks pairs b, b +
+//   blocks, ... (persistent_blocks and block_tiles mirror it), with the
+//   ring's chunk counter running on across tiles. The head's (64, n_pad) f32
+//   tile is left at the start of the A region (a narrow head: two partial
+//   tiles, added by head_at) and copied out coalesced.
+// - Two tiles in flight a block (K3_PAIR), past one wave (MBPO's 80,000 and
+//   100,000 rows: 12 tiles a block). Each consumer warpgroup owns a whole
+//   tile, the full N of every product (up to 256 columns, 128 accumulators a
+//   thread: setmaxnreg gives the consumers 240 registers and the producer
+//   warpgroup 24), so a block streams a member's weights once for two
+//   tiles, one wgmma covers a layer's width, and no barrier joins the two
+//   warpgroups; each reads its tile's biases from its own copy in shared
+//   memory (loaded per k-step group from global memory, they took 7 us an
+//   f32 epilogue). The two tiles of a pair belong to one member and read one
+//   weight ring (up to PAIR_MAX_STAGES buffers), each buffer freed by both;
+//   on an H100 the two warpgroups run in step, so their epilogues do not
+//   hide under each other's products (PERF.md). The work is
+//   the member-major list of (member, tile pair); a member's odd last tile is
+//   a pair of one, whose idle warpgroup still frees the ring's buffers
+//   (pair_blocks and block_pairs mirror it). A comes from registers: each
+//   warpgroup keeps its tile's activations in shared memory as one f32 (or
+//   bf16) copy, laid out by A fragment (pair_slot), and loads each k-step's
+//   fragment into registers before its wgmma; an f32 fragment is split into
+//   tf32 hi and lo there, as store_a does, for the same three products
+//   (3xTF32). Two f32 tiles fit only so: their hi and lo copies in shared
+//   memory would take 204.8 of the 227 KB at 200 wide. The epilogue is the
+//   warp's own: its rows are its wgmma rows, so only __syncwarp orders it.
+// - A cluster a member (K3_CLUSTER), at a few rows a member (kernels.py:
+//   CLUSTER_ROWS; the entry takes up to 64): one row per elite ran five
+//   blocks on 132 SMs, each streaming its member's whole stack through one
+//   SM, one 64-row tile's products and epilogues. Here a cluster of up to CLUSTER_MAX
+//   blocks runs each member's chain; each block takes 1/C of every product's
+//   columns, reads only those weights (the stack's plain (K, N) rows, no
+//   repack) and multiplies on the FMA units (at a few real rows the tensor
+//   cores' 64-row tiles buy nothing), and writes its slice of the
+//   activations into every block's shared memory (st.shared::cluster), the
+//   cluster meeting at a barrier before the next product. Each block writes
+//   its head columns straight out.
+//
+// Every loop bound around a wgmma is warp-uniform (blockIdx, gridDim, kernel
+// arguments, the warpgroup index through a shuffle): ptxas sees no divergent
+// path around them.
 //
 // Plain C interface, loaded with ctypes; the entry returns cudaGetLastError()
 // after its launch.
 
 #include <limits.h>
 
+#include <type_traits>
+
 #include "tc_chain.cuh"
+#include "wgmma_rs.cuh"
+
+#define K3_TILE 0
+#define K3_PAIR 1
+#define K3_CLUSTER 2
+#define PAIR_MAX_STAGES 8      // full[s] at 8s, empty[s] at 64 + 8s: 128 bytes of barriers
+#define PAIR_SLOT_BYTES 2048   // one k-step of a warpgroup's A: 4 warps x 32 lanes x 16 bytes
+#define PAIR_WG_BARRIER 2      // + w: warpgroup w's own named barrier
+#define PAIR_IN_FLIGHT 2       // k-steps in flight a warpgroup on the two-tile route
+#define CLUSTER_MAX 8
+#define CLUSTER_THREADS 256
+#define CLUSTER_PASS_ROWS 8    // rows of one pass of the cluster's products
+#define CLUSTER_KSLICE 32      // k rows a thread holds: TC_MAX_WIDTH / 8 warps
 
 #ifdef TC_TIMELINE
-// Marks of block 0: 0 start, 1 barriers set up; then, of the last tile it
-// ran, 29 tile begun, 2 input staged, consume_chain's 3.., 30 head written out.
+// Marks of block 0. One tile a block: 0 start, 1 barriers set up; then, of
+// the last tile it ran, 29 tile begun, 2 input staged, consume_chain's 3..,
+// 30 head written out. Two tiles a block: the same marks for each
+// warpgroup's last tile (warpgroup 1 at 32 + k). A cluster: 2 input staged
+// and the cluster met, 3 + 3i product i's columns written, 5 + 3i the
+// cluster met after it, 30 head written.
 extern "C" int mbrl_timeline_k3(unsigned long long* out) {
   static const unsigned long long zero[96] = {};
   const cudaError_t err = cudaMemcpyFromSymbol(out, tc_timeline, sizeof(tc_timeline));
@@ -58,8 +99,9 @@ extern "C" int mbrl_timeline_k3(unsigned long long* out) {
 }
 #endif
 
-// grid = (blocks,), TC_CHAIN_THREADS threads. x (E, S, in) f32 -> out (E, S,
-// head_out) f32, raw head; `ws` is pack_chain()'s tiles.
+// ---------------------------------------------------------------------------
+// One tile a block. grid = (blocks,), TC_CHAIN_THREADS threads. x (E, S, in)
+// f32 -> out (E, S, head_out) f32, raw head; `ws` is pack_chain()'s tiles.
 template <int ACT, bool BF16>
 __global__ void __launch_bounds__(TC_CHAIN_THREADS, 1)
 ensemble_mlp_tc_kernel(const float* __restrict__ x, const unsigned char* __restrict__ ws,
@@ -111,35 +153,619 @@ ensemble_mlp_tc_kernel(const float* __restrict__ x, const unsigned char* __restr
 }
 
 // ---------------------------------------------------------------------------
+// Two tiles a block
+
+// Bytes of one warpgroup's copy of a member's biases (after the ring)
+__host__ __device__ __forceinline__ int pair_bias_bytes(const ChainDesc& d) {
+  return (d.b_member * 4 + 15) / 16 * 16;
+}
+
+// Byte offset of lane `lane`'s A fragment for k-step q in warp `warp`'s part
+// of a warpgroup's A region: 16 bytes a lane, lanes 8-15 and 24-31 swizzled
+// by two slots, so that the f32 route's 8-byte reads of its neighbours'
+// slots (pair_fragment) and the 16-byte stores hit no bank twice.
+__device__ __forceinline__ int pair_slot(int q, int warp, int lane) {
+  return ((q * 4 + warp) * 32 + (lane ^ ((lane >> 2) & 2))) * 16;
+}
+
+// This thread's A fragment of k-step q from its warpgroup's region `a`. bf16:
+// four registers of two values, stored as the fragment itself. f32: the
+// values are stored as the wgmma D fragment leaves them, (r, 2u), (r + 8, 2u),
+// (r, 2u + 1), (r + 8, 2u + 1) in lane 4g + u; lane 4g + t takes columns t and
+// t + 4 from lanes 4g + t/2 and 4g + 2 + t/2, and splits them into tf32 hi
+// (f[0..3]) and lo (f[4..7]).
+template <bool BF16>
+__device__ __forceinline__ void pair_fragment(uint32_t* f, const unsigned char* a, int q, int warp,
+                                              int lane) {
+  if constexpr (BF16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(a + pair_slot(q, warp, lane));
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+  } else {
+    const int t = lane & 3, g4 = lane & ~3, half = (t & 1) * 8;
+    const float2 p = *reinterpret_cast<const float2*>(a + pair_slot(q, warp, g4 + (t >> 1)) + half);
+    const float2 r =
+        *reinterpret_cast<const float2*>(a + pair_slot(q, warp, g4 + 2 + (t >> 1)) + half);
+    const float v[4] = {p.x, p.y, r.x, r.y};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float hi = to_tf32(v[k]);
+      f[k] = __float_as_uint(hi);
+      f[4 + k] = __float_as_uint(to_tf32(v[k] - hi));
+    }
+  }
+}
+
+// Stores a (2-row, 8-column) piece of this thread's A for the next product:
+// values (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1) of column group j, c =
+// 8j + 2t, in the layout pair_fragment reads. bf16 pairs two groups into one
+// fragment: the caller passes both (v[0..3] group 2q, v[4..7] group 2q + 1).
+template <bool BF16>
+__device__ __forceinline__ void pair_store(unsigned char* a, int q, int warp, int lane,
+                                           const float* v) {
+  if constexpr (BF16) {
+    const __nv_bfloat162 f0 = __floats2bfloat162_rn(v[0], v[1]), f1 = __floats2bfloat162_rn(v[2], v[3]);
+    const __nv_bfloat162 f2 = __floats2bfloat162_rn(v[4], v[5]), f3 = __floats2bfloat162_rn(v[6], v[7]);
+    *reinterpret_cast<uint4*>(a + pair_slot(q, warp, lane)) =
+        make_uint4(*reinterpret_cast<const uint32_t*>(&f0), *reinterpret_cast<const uint32_t*>(&f1),
+                   *reinterpret_cast<const uint32_t*>(&f2), *reinterpret_cast<const uint32_t*>(&f3));
+  } else {
+    *reinterpret_cast<float4*>(a + pair_slot(q, warp, lane)) = make_float4(v[0], v[2], v[1], v[3]);
+  }
+}
+
+// One k-step's products for one warpgroup over the full N, as one commit
+// group: fence, the products on the fragment `f`, commit. 3xTF32 for f32,
+// the small cross terms first, as issue_chunk.
+template <int N, bool BF16>
+__device__ __forceinline__ void pair_issue(int first, float* acc, const uint32_t* f, uint32_t b,
+                                           uint32_t b_lo, uint32_t b_lbo) {
+  wgmma_fence();
+  const uint64_t db = smem_desc(b, b_lbo, 128);
+  if constexpr (BF16) {
+    wgmma_bf16_rs<N>(acc, f, db, !first);
+  } else {
+    const uint64_t db_lo = smem_desc(b_lo, b_lbo, 128);
+    wgmma_tf32_rs<N>(acc, f + 4, db, !first);
+    wgmma_tf32_rs<N>(acc, f, db_lo, 1);
+    wgmma_tf32_rs<N>(acc, f, db, 1);
+  }
+  wgmma_commit();
+}
+
+// k-step q: its fragment into `f` (held until the group is done), then its
+// products at the width of this product (a compile-time case). ptxas
+// pipelines register-A wgmma only so: with the fragment loaded inside each
+// case, or a chunk's 2 (f32) or 4 (bf16) k-steps in one group, it
+// serialized every wgmma of the kernel (C7511).
+template <bool BF16>
+__device__ __forceinline__ void pair_step(int n8, int first, float* acc, uint32_t* f,
+                                          const unsigned char* a, int q, int warp, int lane,
+                                          uint32_t b, uint32_t b_lo, uint32_t b_lbo) {
+  pair_fragment<BF16>(f, a, q, warp, lane);
+  switch (n8) {
+#define PAIR_CASE(J)                                                   \
+  case J:                                                              \
+    pair_issue<8 * J, BF16>(first, acc, f, b, b_lo, b_lbo);            \
+    break;
+    PAIR_CASE(1) PAIR_CASE(2) PAIR_CASE(3) PAIR_CASE(4) PAIR_CASE(5) PAIR_CASE(6) PAIR_CASE(7)
+    PAIR_CASE(8) PAIR_CASE(9) PAIR_CASE(10) PAIR_CASE(11) PAIR_CASE(12) PAIR_CASE(13)
+    PAIR_CASE(14) PAIR_CASE(15) PAIR_CASE(16) PAIR_CASE(17) PAIR_CASE(18) PAIR_CASE(19)
+    PAIR_CASE(20) PAIR_CASE(21) PAIR_CASE(22) PAIR_CASE(23) PAIR_CASE(24) PAIR_CASE(25)
+    PAIR_CASE(26) PAIR_CASE(27) PAIR_CASE(28) PAIR_CASE(29) PAIR_CASE(30) PAIR_CASE(31)
+    PAIR_CASE(32)
+#undef PAIR_CASE
+    default:
+      wgmma_commit();
+  }
+}
+
+// The ring's side of one product for a warpgroup: where it is in the ring.
+struct PairRing {
+  uint32_t it;     // ring buffers taken over the launch (both warpgroups count all)
+  int s, prev;     // the current buffer, the previous one (freed once its products are done)
+};
+
+// Chunk c of product i: wait for its ring buffer if it is the buffer's
+// first, issue its k-steps one commit group each, and once they are issued
+// free the previous buffer (its products are done by then). PAIR_IN_FLIGHT
+// k-steps are in flight, on as many fragment sets (a chunk has an even number
+// of k-steps but its product's last: each set is written again only after its
+// group is done).
+template <bool BF16>
+__device__ __forceinline__ void pair_take(const ChainDesc& d, uint32_t bars, int i, int c, int per,
+                                          float* acc, uint32_t* f0, uint32_t* f1,
+                                          const unsigned char* a, int warp, int lane,
+                                          PairRing& ring) {
+  using C = TC<BF16>;
+  const int kp = d.kp[i], np = d.np[i];
+  const int j = c % per;  // its place in the ring buffer
+  if (j == 0) {
+    ring.s = ring.it % d.stages;
+    mbar_wait(bars + 8 * ring.s, (ring.it / d.stages) & 1);
+  }
+  const int k0 = c * C::CHUNK, steps = min(C::CHUNK, kp - k0) / C::KSTEP;
+  const uint32_t b_lbo = np * 16;
+  const uint32_t st = bars + TC_BARRIER_BYTES + d.a_bytes + ring.s * d.stage_bytes +
+                      j * C::CHUNK * np * C::ESIZE * C::COPIES;
+  const uint32_t lo = steps * C::KSTEP * np * C::ESIZE;  // the lo block follows the hi block
+  for (int q = 0; q < steps; q += 2) {
+    const uint32_t b = st + q * 2 * b_lbo;
+    pair_step<BF16>(np / 8, c == 0 && q == 0, acc, f0, a, k0 / C::KSTEP + q, warp, lane, b, b + lo,
+                    b_lbo);
+    wgmma_wait<PAIR_IN_FLIGHT - 1>();
+    if (q + 1 < steps) {
+      pair_step<BF16>(np / 8, 0, acc, PAIR_IN_FLIGHT > 1 ? f1 : f0, a, k0 / C::KSTEP + q + 1, warp,
+                      lane, b + 2 * b_lbo, b + 2 * b_lbo + lo, b_lbo);
+      wgmma_wait<PAIR_IN_FLIGHT - 1>();
+    }
+  }
+  if (j == 0) {
+    mbar_arrive(bars + 64 + 8 * max(ring.prev, 0), lane == 0 && ring.prev >= 0);
+    ring.prev = ring.s;
+    ++ring.it;
+  }
+}
+
+// Product i of this warpgroup's tile, A from its region `a`, into acc.
+template <bool BF16>
+__device__ __forceinline__ void pair_product(const ChainDesc& d, uint32_t bars, int i, float* acc,
+                                             const unsigned char* a, int warp, int lane,
+                                             PairRing& ring) {
+  using C = TC<BF16>;
+  const int per = ring_chunks<BF16>(d, i);
+  const int nch = (d.kp[i] + C::CHUNK - 1) / C::CHUNK;
+  uint32_t f0[8], f1[8];
+  ring.prev = -1;
+  for (int c = 0; c < nch; ++c) pair_take<BF16>(d, bars, i, c, per, acc, f0, f1, a, warp, lane, ring);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 2 * ACC_REGS; ++j) asm volatile("" : "+f"(acc[j])::"memory");
+  mbar_arrive(bars + 64 + 8 * ring.prev, lane == 0);
+}
+
+// A warpgroup with no tile in this pair (a member's odd last tile): take and
+// free every ring buffer of the member's chain, as the other warpgroup does.
+template <bool BF16>
+__device__ __forceinline__ void pair_skip(const ChainDesc& d, uint32_t bars, int lane, PairRing& ring) {
+  for (int i = 0; i < d.num_products; ++i) {
+    const int run = ring_chunks<BF16>(d, i) * TC<BF16>::CHUNK;
+    for (int k0 = 0; k0 < d.kp[i]; k0 += run) {
+      const int s = ring.it % d.stages;
+      mbar_wait(bars + 8 * s, (ring.it / d.stages) & 1);
+      mbar_arrive(bars + 64 + 8 * s, lane == 0);
+      ++ring.it;
+    }
+  }
+}
+
+// The bias (`bias`: this warpgroup's copy in shared memory) and activation of
+// a hidden product's n8 column groups, stored as
+// the next product's A (zero past dout, so the padded k-steps add nothing).
+template <int ACT, bool BF16>
+__device__ __forceinline__ void pair_epilogue(const float* acc, const float* bias, int n8, int dout,
+                                              unsigned char* a, int warp, int lane) {
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < ACC_REGS / 2; j += BF16 ? 2 : 1) {
+    if (j < n8) {
+      float v[8];
+#pragma unroll
+      for (int h = 0; h < (BF16 ? 2 : 1); ++h) {
+        const int c = c0 + 8 * (j + h);
+        const bool in0 = c < dout, in1 = c + 1 < dout;
+        const float b0 = in0 ? bias[c] : 0.0f, b1 = in1 ? bias[c + 1] : 0.0f;
+        v[4 * h] = in0 ? tc_activate<ACT>(acc[4 * (j + h)] + b0) : 0.0f;
+        v[4 * h + 1] = in1 ? tc_activate<ACT>(acc[4 * (j + h) + 1] + b1) : 0.0f;
+        v[4 * h + 2] = in0 ? tc_activate<ACT>(acc[4 * (j + h) + 2] + b0) : 0.0f;
+        v[4 * h + 3] = in1 ? tc_activate<ACT>(acc[4 * (j + h) + 3] + b1) : 0.0f;
+      }
+      pair_store<BF16>(a, BF16 ? j / 2 : j, warp, lane, v);
+    }
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void pair_epilogue(int act, const float* acc, const float* bias, int n8,
+                                              int dout, unsigned char* a, int warp, int lane) {
+  switch (act) {
+#define PAIR_ACT(A)                                                  \
+  case A:                                                            \
+    pair_epilogue<A, BF16>(acc, bias, n8, dout, a, warp, lane);      \
+    break;
+    PAIR_ACT(ACT_RELU) PAIR_ACT(ACT_SILU) PAIR_ACT(ACT_TANH) PAIR_ACT(ACT_ELU) PAIR_ACT(ACT_GELU)
+    PAIR_ACT(ACT_LEAKY_RELU)
+#undef PAIR_ACT
+  }
+}
+
+// grid = (blocks,), TC_CHAIN_THREADS threads: pairs (member, tiles 2p and 2p
+// + 1) of the member-major list, block b taking b, b + blocks, ...;
+// `member_pairs` = ceil(num_tiles / 2), `total` = E * member_pairs. Compiled
+// per dtype only, the activation (`act`) a switch around the epilogue: the
+// products, compiled for every width and chunk depth, are the bulk of the
+// code, and six copies of them took minutes of ptxas.
+template <bool BF16>
+__global__ void __launch_bounds__(TC_CHAIN_THREADS, 1)
+ensemble_mlp_pair_kernel(const float* __restrict__ x, const unsigned char* __restrict__ ws,
+                         const float* __restrict__ bs, float* __restrict__ out, const ChainDesc d,
+                         int S, int num_tiles, int member_pairs, int total, int act) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  TC_STAMP(0)
+  if (threadIdx.x == 0) {
+    const uint32_t bars = smem_u32(smem);
+    for (int s = 0; s < d.stages; ++s) {
+      mbar_init(bars + 8 * s, 1);                       // full: the producer's expect_tx
+      mbar_init(bars + 64 + 8 * s, TC_CONSUMERS / 32);  // empty: one arrive per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  TC_STAMP(1)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  if (wg == 2) {  // the producer warpgroup: its first thread streams each pair's member once
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (threadIdx.x == TC_CONSUMERS) {
+      uint32_t it = 0;
+      for (int p = blockIdx.x; p < total; p += gridDim.x)
+        produce_chain<BF16>(d, smem, ws + (size_t)(p / member_pairs) * d.w_member * TC<BF16>::ESIZE,
+                            it);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const uint32_t bars = smem_u32(smem);
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int din = d.dims[0], dh = d.dims[d.num_products];
+    unsigned char* a = smem + TC_BARRIER_BYTES + wg * d.a_copy_bytes;
+    float* bias = reinterpret_cast<float*>(smem + d.extra_off + wg * pair_bias_bytes(d));
+    PairRing ring{0, 0, -1};
+    for (int p = blockIdx.x; p < total; p += gridDim.x) {
+      const int e = p / member_pairs;
+      const int tile = 2 * (p - e * member_pairs) + wg;
+      if (tile >= num_tiles) {
+        pair_skip<BF16>(d, bars, lane, ring);
+        continue;
+      }
+      TC_STAMP(29)
+      const int row0 = tile * TC_ROWS, rows = min(TC_ROWS, S - row0);
+      const int r = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+      // the input tile as the first product's A, zero past the ragged last
+      // tile's rows and past `in`: rows r and r + 8 of this thread's lanes
+      const float* xe = x + ((size_t)e * S + row0) * din;
+      // the member's biases into this warpgroup's copy, once its last tile
+      // has read them
+      asm volatile("bar.sync %0, %1;" ::"r"(PAIR_WG_BARRIER + wg), "n"(128) : "memory");
+      for (int idx = threadIdx.x & 127; idx < d.b_member; idx += 128)
+        bias[idx] = __ldg(bs + (size_t)e * d.b_member + idx);
+      for (int q = 0; q < d.kp[0] / TC<BF16>::KSTEP; ++q) {
+        float v[8];
+#pragma unroll
+        for (int h = 0; h < (BF16 ? 2 : 1); ++h) {
+          const int c = (BF16 ? 16 * q : 8 * q) + 8 * h + c0;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {  // (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1)
+            const int rr = r + 8 * (u >> 1), cc = c + (u & 1);
+            v[4 * h + u] = rr < rows && cc < din ? __ldg(xe + (size_t)rr * din + cc) : 0.0f;
+          }
+        }
+        pair_store<BF16>(a, q, warp, lane, v);
+      }
+      asm volatile("bar.sync %0, %1;" ::"r"(PAIR_WG_BARRIER + wg), "n"(128) : "memory");
+      TC_STAMP(2)
+      for (int i = 0; i < d.num_products; ++i) {
+        float acc[2 * ACC_REGS];
+        pair_product<BF16>(d, bars, i, acc, a, warp, lane, ring);
+        TC_STAMP(3 + 3 * i)
+        __syncwarp();  // every lane has read its fragments of this product
+        const int n8 = d.np[i] / 8, dout = d.dims[i + 1];
+        if (i + 1 < d.num_products) {
+          pair_epilogue<BF16>(act, acc, bias + d.b_off[i], n8, dout, a, warp, lane);
+          __syncwarp();
+        } else {  // the raw head, straight out: rows r and r + 8, columns c and c + 1
+          float* o = out + ((size_t)e * S + row0) * dh;
+          const float* b = bias + d.b_off[i];
+#pragma unroll
+          for (int j = 0; j < ACC_REGS / 2; ++j) {
+            const int c = c0 + 8 * j;
+            if (j < n8) {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const int rr = r + 8 * (u >> 1), cc = c + (u & 1);
+                if (rr < rows && cc < dh) o[(size_t)rr * dh + cc] = acc[4 * j + u] + b[cc];
+              }
+            }
+          }
+        }
+        TC_STAMP(5 + 3 * i)
+      }
+      TC_STAMP(30)
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// A cluster a member
+
+// The stack's plain layout (pack_mlp): product i's (K, N) row-major at w_off[i]
+struct PlainDesc {
+  int num_products;
+  int dims[MAX_PRODUCTS + 1];
+  int w_off[MAX_PRODUCTS];
+  int b_off[MAX_PRODUCTS];
+  int w_member, b_member;
+  int kmax;     // the widest product input: a row of the activation buffers
+  int cluster;  // blocks of a member's cluster
+};
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;" ::
+                   : "memory");
+}
+
+// v into `p` of every block of the cluster (p: this block's shared address)
+__device__ __forceinline__ void cluster_store(float* p, float v, int blocks) {
+  const uint32_t local = smem_u32(p);
+  for (int b = 0; b < blocks; ++b) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(b));
+    asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(remote), "f"(v) : "memory");
+  }
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <bool BF16>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+// This warp's k-slice of product i's column c, [k0, k1), into registers
+template <typename W, typename V>
+__device__ __forceinline__ void cluster_weights(V* wk, const W* w, int N, int k0, int k1, int c,
+                                                bool valid) {
+#pragma unroll
+  for (int u = 0; u < CLUSTER_KSLICE; ++u)
+    wk[u] = valid && k0 + u < k1 ? static_cast<V>(w[(size_t)(k0 + u) * N + c]) : static_cast<V>(0.0f);
+}
+
+// grid = (E * C,), clusters of C = pd.cluster blocks, CLUSTER_THREADS
+// threads, S <= TC_ROWS rows a member. Shared memory: two activation buffers
+// (S, kmax) f32, the next product's input written by every block, then the
+// k-slices' partial sums. Warp w takes a contiguous slice of every product's
+// K (4-aligned, at most CLUSTER_KSLICE rows) for 32 columns, lane l column
+// l, over rows in passes of CLUSTER_PASS_ROWS; the next product's weights are
+// loaded into registers while this one runs. bf16 stacks round the input
+// and every hidden activation to bf16, where the TPU kernel rounds them.
+template <int ACT, bool BF16>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+ensemble_mlp_cluster_kernel(const float* __restrict__ x, const void* __restrict__ ws_,
+                            const float* __restrict__ bs, float* __restrict__ out, const PlainDesc pd,
+                            int S) {
+  using W = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  extern __shared__ __align__(16) float act_s[];
+  TC_STAMP(0)
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const int C = pd.cluster, e = blockIdx.x / C, ks = pd.kmax;
+  float* red = act_s + 2 * S * ks;  // [8 warps][CLUSTER_PASS_ROWS][32 columns]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int din = pd.dims[0], dh = pd.dims[pd.num_products];
+  const W* wm = static_cast<const W*>(ws_) + (size_t)e * pd.w_member;
+  const float* bm = bs + (size_t)e * pd.b_member;
+  // product i's share of columns [n0, n1) and this warp's k-slice [k0, k1)
+  auto share = [&](int i, int& n0, int& n1, int& k0, int& k1) {
+    const int N = pd.dims[i + 1], K = pd.dims[i], per = (N + C - 1) / C;
+    const int slice = ((K + 7) / 8 + 3) / 4 * 4;
+    n0 = rank * per, n1 = min(N, n0 + per), k0 = min(K, warp * slice), k1 = min(K, k0 + slice);
+  };
+  float wk[CLUSTER_KSLICE], bk, bn = 0.0f;  // this product's weights and bias of column l
+  W wn[CLUSTER_KSLICE];  // the next product's, converted when they are used
+  {
+    int n0, n1, k0, k1;
+    share(0, n0, n1, k0, k1);
+    cluster_weights(wk, wm, pd.dims[1], k0, k1, n0 + lane, n0 + lane < n1);
+    bk = n0 + lane < n1 ? __ldg(bm + n0 + lane) : 0.0f;
+  }
+  for (int idx = threadIdx.x; idx < 2 * S * ks; idx += CLUSTER_THREADS) {  // zero past each K
+    const int r = idx / ks % S, c = idx % ks;
+    act_s[idx] = idx < S * ks && c < din ? operand<BF16>(__ldg(x + ((size_t)e * S + r) * din + c))
+                                         : 0.0f;
+  }
+  cluster_sync_all();  // the input staged, and every block of the cluster running
+  TC_STAMP(2)
+  for (int i = 0; i < pd.num_products; ++i) {
+    const int N = pd.dims[i + 1];
+    const bool head = i + 1 == pd.num_products;
+    int n0, n1, k0, k1;
+    share(i, n0, n1, k0, k1);
+    if (!head) {  // the next product's first 32 columns, while this one runs
+      int m0, m1, j0, j1;
+      share(i + 1, m0, m1, j0, j1);
+      cluster_weights(wn, wm + pd.w_off[i + 1], pd.dims[i + 2], j0, j1, m0 + lane, m0 + lane < m1);
+      bn = m0 + lane < m1 ? __ldg(bm + pd.b_off[i + 1] + m0 + lane) : 0.0f;
+    }
+    const float* in = act_s + (i & 1) * S * ks;
+    float* nxt = act_s + ((i + 1) & 1) * S * ks;
+    for (int cb = n0; cb < n1; cb += 32) {
+      const int c = cb + lane;
+      if (cb != n0) {
+        cluster_weights(wk, wm + pd.w_off[i], N, k0, k1, c, c < n1);
+        bk = c < n1 ? __ldg(bm + pd.b_off[i] + c) : 0.0f;
+      }
+      for (int r0 = 0; r0 < S; r0 += CLUSTER_PASS_ROWS) {
+        float acc[CLUSTER_PASS_ROWS] = {};
+#pragma unroll
+        for (int u = 0; u < CLUSTER_KSLICE; u += 4) {
+          if (k0 + u < k1) {
+#pragma unroll
+            for (int rr = 0; rr < CLUSTER_PASS_ROWS; ++rr) {
+              if (r0 + rr < S) {
+                const float4 a = *reinterpret_cast<const float4*>(in + (r0 + rr) * ks + k0 + u);
+                acc[rr] = fmaf(a.x, wk[u], fmaf(a.y, wk[u + 1], fmaf(a.z, wk[u + 2],
+                          fmaf(a.w, wk[u + 3], acc[rr]))));
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < CLUSTER_PASS_ROWS; ++rr) red[(warp * CLUSTER_PASS_ROWS + rr) * 32 + lane] = acc[rr];
+        __syncthreads();
+        // thread (rr, lane): row r0 + rr, column cb + lane, summed over the 8 k-slices
+        const int rr = warp, r = r0 + rr;
+        if (r < S && c < n1) {
+          float v = bk;
+#pragma unroll
+          for (int s = 0; s < 8; ++s) v += red[(s * CLUSTER_PASS_ROWS + rr) * 32 + lane];
+          if (head)
+            out[((size_t)e * S + r) * dh + c] = v;
+          else
+            cluster_store(nxt + r * ks + c, operand<BF16>(tc_activate<ACT>(v)), C);
+        }
+        __syncthreads();
+      }
+    }
+    TC_STAMP(3 + 3 * i)
+    if (!head) cluster_sync_all();  // every block's columns of this product are in place
+    TC_STAMP(5 + 3 * i)
+#pragma unroll
+    for (int u = 0; u < CLUSTER_KSLICE; ++u) wk[u] = to_float(wn[u]);
+    bk = bn;
+  }
+  TC_STAMP(30)
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 
-#define LAUNCH_K3(ACT, BF16, grid, smem, stream, ...)                                      \
-  {                                                                                        \
-    cudaError_t err = prepare_once<ensemble_mlp_tc_kernel<ACT, BF16>>();                   \
-    if (err != cudaSuccess) return err;                                                    \
-    ensemble_mlp_tc_kernel<ACT, BF16><<<grid, TC_CHAIN_THREADS, smem, stream>>>(__VA_ARGS__);    \
+// The two-tile route's plan: the chain's layout (make_chain_desc, so that the
+// two routes take the same stacks), A as two warpgroups' regions of one copy
+// (pair_slot), a ring of up to PAIR_MAX_STAGES buffers after them, then each
+// warpgroup's copy of its member's biases (at extra_off).
+template <bool BF16>
+static bool make_pair_desc(const int* dims, int num_products, ChainDesc* d, size_t* smem) {
+  using C = TC<BF16>;
+  if (!make_chain_desc<BF16>(dims, num_products, 0, d, smem)) return false;
+  int kmax = 0;
+  for (int i = 0; i < num_products; ++i) kmax = kmax > d->kp[i] ? kmax : d->kp[i];
+  d->a_copy_bytes = kmax / C::KSTEP * PAIR_SLOT_BYTES;
+  d->a_bytes = 2 * d->a_copy_bytes;
+  const int biases = 2 * pair_bias_bytes(*d);
+  const int stages = (TC_SMEM_LIMIT - TC_BARRIER_BYTES - d->a_bytes - biases) / d->stage_bytes;
+  d->stages = stages < PAIR_MAX_STAGES ? stages : PAIR_MAX_STAGES;
+  if (d->stages < 2) return false;
+  d->extra_off = TC_BARRIER_BYTES + d->a_bytes + d->stages * d->stage_bytes;
+  *smem = d->extra_off + biases;
+  return true;
+}
+
+static bool make_plain_desc(const int* dims, int num_products, int cluster, PlainDesc* pd,
+                            size_t* smem, int rows) {
+  if (num_products < 1 || num_products > MAX_PRODUCTS || cluster < 2 || cluster > CLUSTER_MAX ||
+      rows > TC_ROWS)
+    return false;
+  pd->num_products = num_products;
+  pd->cluster = cluster;
+  int w = 0, b = 0, kmax = 4;
+  for (int i = 0; i <= num_products; ++i) {
+    if (dims[i] < 1 || dims[i] > TC_MAX_WIDTH) return false;
+    pd->dims[i] = dims[i];
+  }
+  for (int i = 0; i < num_products; ++i) {
+    pd->w_off[i] = w;
+    pd->b_off[i] = b;
+    w += dims[i] * dims[i + 1];
+    b += dims[i + 1];
+    kmax = kmax > dims[i] ? kmax : dims[i];
+  }
+  pd->w_member = w;
+  pd->b_member = b;
+  pd->kmax = (kmax + 3) / 4 * 4;  // a row of the activation buffers, 16-byte aligned
+  *smem = sizeof(float) * (2 * (size_t)rows * pd->kmax + 8 * CLUSTER_PASS_ROWS * 32);
+  return true;
+}
+
+#define LAUNCH_K3(ACT, BF16, grid, smem, stream, ...)                                          \
+  {                                                                                            \
+    cudaError_t err = prepare_once<ensemble_mlp_tc_kernel<ACT, BF16>>();                       \
+    if (err != cudaSuccess) return err;                                                        \
+    ensemble_mlp_tc_kernel<ACT, BF16><<<grid, TC_CHAIN_THREADS, smem, stream>>>(__VA_ARGS__);  \
+  }
+
+#define LAUNCH_K3_PAIR(BF16, grid, smem, stream, ...)                                    \
+  {                                                                                      \
+    cudaError_t err = prepare_once<ensemble_mlp_pair_kernel<BF16>>();                    \
+    if (err != cudaSuccess) return err;                                                  \
+    ensemble_mlp_pair_kernel<BF16><<<grid, TC_CHAIN_THREADS, smem, stream>>>(__VA_ARGS__);  \
+  }
+
+#define LAUNCH_K3_CLUSTER(ACT, BF16, cfg, ...)                                                \
+  {                                                                                           \
+    cudaError_t err = prepare_once<ensemble_mlp_cluster_kernel<ACT, BF16>>();                 \
+    if (err != cudaSuccess) return err;                                                       \
+    err = cudaLaunchKernelEx(&cfg, ensemble_mlp_cluster_kernel<ACT, BF16>, __VA_ARGS__);      \
+    if (err != cudaSuccess) return err;                                                       \
   }
 
 extern "C" {
 
 // `tiles` is pack_chain()'s weight tensor; `tile_elems` its elements per
-// member, checked against this side's layout. `blocks` is the grid
-// (persistent_blocks() in ops/kernels.py).
+// member, checked against this side's layout; `ws` the stack's plain weights
+// (pack_mlp; the cluster route reads them). `route` is K3_TILE, K3_PAIR or
+// K3_CLUSTER and `blocks` its grid (k3_route and k3_blocks in ops/kernels.py).
 int mbrl_ensemble_mlp(const float* x, const void* tiles, const float* bs, float* out,
                       const int* dims, int num_products, int num_members, int rows, int blocks,
-                      int act, int bf16, long long tile_elems, void* stream) {
+                      int act, int bf16, long long tile_elems, const void* ws, int route,
+                      void* stream) {
   ChainDesc d;
   size_t smem;
   if (!make_chain_desc(bf16, dims, num_products, 0, &d, &smem) || rows < 1 ||
       num_members < 1 || d.w_member != tile_elems)
     return cudaErrorInvalidValue;
   const int num_tiles = (rows + TC_ROWS - 1) / TC_ROWS;
-  const long long total = (long long)num_tiles * num_members;
-  if (blocks < 1 || blocks > total || total > INT_MAX) return cudaErrorInvalidValue;
-  const dim3 grid(blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned char* ws = static_cast<const unsigned char*>(tiles);
-  DISPATCH(act, bf16, LAUNCH_K3, grid, smem, s, x, ws, bs, out, d, rows, num_tiles, (int)total)
+  const unsigned char* wt = static_cast<const unsigned char*>(tiles);
+  if (route == K3_TILE) {
+    const long long total = (long long)num_tiles * num_members;
+    if (blocks < 1 || blocks > total || total > INT_MAX) return cudaErrorInvalidValue;
+    const dim3 grid(blocks);
+    DISPATCH(act, bf16, LAUNCH_K3, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, (int)total)
+  } else if (route == K3_PAIR) {
+    const bool ok = bf16 ? make_pair_desc<true>(dims, num_products, &d, &smem)
+                         : make_pair_desc<false>(dims, num_products, &d, &smem);
+    const int member_pairs = (num_tiles + 1) / 2;
+    const long long total = (long long)member_pairs * num_members;
+    if (!ok || blocks < 1 || blocks > total || total > INT_MAX) return cudaErrorInvalidValue;
+    const dim3 grid(blocks);
+    if (act < ACT_RELU || act > ACT_LEAKY_RELU) return cudaErrorInvalidValue;
+    if (bf16) {
+      LAUNCH_K3_PAIR(true, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, member_pairs,
+                     (int)total, act)
+    } else {
+      LAUNCH_K3_PAIR(false, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, member_pairs,
+                     (int)total, act)
+    }
+  } else if (route == K3_CLUSTER) {
+    PlainDesc pd;
+    if (blocks % num_members != 0 ||
+        !make_plain_desc(dims, num_products, blocks / num_members, &pd, &smem, rows))
+      return cudaErrorInvalidValue;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = pd.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(CLUSTER_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    DISPATCH(act, bf16, LAUNCH_K3_CLUSTER, cfg, x, ws, bs, out, pd, rows)
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

@@ -106,7 +106,9 @@ _P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlon
 _DIMS = ctypes.POINTER(ctypes.c_int)
 # every entry of the library: its argument types (each returns a CUDA error code)
 SIGNATURES = {
-    "mbrl_ensemble_mlp": [_P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _LL, _P],
+    # K3 on the chain: ..., pack_chain's elements a member, the stack's plain
+    # weights (its cluster route reads them), the route (kernels.K3_ROUTES)
+    "mbrl_ensemble_mlp": [_P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _LL, _P, _I, _P],
     "mbrl_ensemble_mlp_gaussian": [
         _U, _U, _P, _P, _P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _I, _LL, _P,
     ],

@@ -2,7 +2,9 @@
 and what each chain kernel takes a launch at the main path's shapes.
 
     python3 -m mbrl_tpu_torch.ops.chain_timeline              # the phase tables
+    python3 -m mbrl_tpu_torch.ops.chain_timeline --k3         # K3's alone
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms         # ms per launch
+    python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --routes --repeats 3
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --root DIR --repeats 3
 
 The phase tables build the kernels with ``-DTC_TIMELINE`` (a library of its
@@ -11,16 +13,20 @@ microseconds from its start to each mark of ``csrc/tc_chain.cuh``: barriers
 set up, input tile built, then for every product the end of its wgmma, the
 barrier after it and the end of its epilogue (for a hidden layer also its
 stores issued and fenced, before the closing barrier), the first weight
-chunk landed, the normals ready
-for the consumers (and, on the producer's side, drawn), and the sampled
-output. The shapes are the main path's: K2 at config E's (E=5 x S=1,400
-rows, in 5, 4x200 silu, head 8) and config B's (S=1,600, in 24, head 36),
-f32 and bf16; K1 at config A's (8,000 rows, H=30, in 23, head 36, one block
-per 64-row tile) with the last step of block 0 counted from that step's
-start, and the block's whole time. Then K3 at B's shape (one tile a block)
-and at S=20,000 (a persistent block walking 11 or 12 tiles): the same marks
-for the last tile block 0 ran, counted from that tile's start, with the
-block's whole time and its tiles.
+chunk landed, the normals ready for the consumers (and, on the producer's
+side, drawn), and the sampled output.
+
+K3 first, one shape of each of its routes (``K3_TIMELINES``): one tile a
+block at config B's shape (the marks of the last tile block 0 ran, from that
+tile's start), two tiles a block at S=20,000 and at config M's shape (each
+consumer warpgroup's last tile, its marks from the block's start: input,
+products and epilogue of every product, head written), and a cluster a
+member at one row per elite (block 0's marks from its start: its columns of
+each product written, the cluster met). Then K2 at config E's shape (E=5 x
+S=1,400 rows, in 5, 4x200 silu, head 8) and config B's (S=1,600, in 24,
+head 36), f32 and bf16; K1 at config A's (8,000 rows, H=30, in 23, head 36,
+one block per 64-row tile) with the last step of block 0 counted from that
+step's start, and the block's whole time.
 
 Then the wide route at 4x512 (``csrc/wide_tc.cuh``): K2 at config B's shape,
 and K3 at that shape and at S=20,000 (in 23), f32 and bf16, with the marks of
@@ -31,7 +37,9 @@ issued.
 
 ``--ms`` times each chain kernel instead, in CUDA graphs of 20 launches (the
 device time a launch, without the wrapper's host time) at the same shapes
-and at K3's D (head 18), C100k and M shapes, ``--repeats`` times over. With
+and at K3's (``K3_SHAPES``: D, C100k, M, one row per elite at CL-B, CL-A and
+DG, and the routes' limits), ``--repeats`` times over; ``--routes`` also
+times K3 on the routes it does not pick at ``K3_ROUTE_SHAPES``. With
 ``--root DIR`` it builds and times the package of another checkout at DIR
 (an earlier commit, say), through the same wrappers, so that two trees can
 be compared in one call on one card. Needs a CUDA device; exits 2 without
@@ -57,9 +65,21 @@ K2_SHAPES = {"E": ((5, 200, 200, 200, 200, 8), 1400, 4), "B": (DIMS, ROWS, OUT)}
 # config A: 400 x 20 particles over 5 members, horizon 30, obs 17, act 6
 K1_BATCH, K1_HORIZON, K1_OBS, K1_ACT, K1_TILE = 8000, 30, 17, 6, 64
 K1_DIMS = (K1_OBS + K1_ACT, 200, 200, 200, 200, 2 * (K1_OBS + 1))
-# K3: name -> (dims, rows a member)
+# K3: name -> (dims, rows a member): the main path's shapes (one row per
+# elite at CL-B, CL-A and DG), then the two-tile route's crossover (27 tiles a
+# member: 135 > 132 SMs), an odd tile count a member, and S = 64 and 65
+M_DIMS = (5, 200, 200, 200, 200, 10)
 K3_SHAPES = {"C8k": (DIMS, ROWS), "D": (DIMS[:-1] + (18,), ROWS),
-             "C100k": ((23,) + DIMS[1:], LONG_ROWS), "M": ((5, 200, 200, 200, 200, 10), 16_000)}
+             "C100k": ((23,) + DIMS[1:], LONG_ROWS), "M": (M_DIMS, 16_000),
+             "CL-B": (DIMS, 1), "CL-A": ((23,) + DIMS[1:], 1),
+             "DG": ((5, 200, 200, 200, 200, 8), 1),
+             "x1700": (DIMS, 1_700), "x1000": (DIMS, 1_000), "S64": (DIMS, 64), "S65": (DIMS, 65)}
+# K3's phase tables: name -> (dims, rows a member), each route at the main
+# path's shapes
+K3_TIMELINES = {"B": (DIMS, ROWS), "C100k": ((23,) + DIMS[1:], LONG_ROWS), "M": (M_DIMS, 16_000),
+                "CL-B": (DIMS, 1)}
+# shapes at which --ms also times the routes that K3 does not pick there
+K3_ROUTE_SHAPES = ("C8k", "x1700", "x1000", "M", "C100k", "CL-B", "S64")
 
 
 def marks(num_products: int):
@@ -137,14 +157,34 @@ def k1_launch(dtype: torch.dtype):
     return lambda: K.fused_rollout_returns(g, *args, tiles=tiles)
 
 
-def k3_launch(dtype: torch.dtype, dims, rows: int):
+def k3_launch(dtype: torch.dtype, dims, rows: int, route: str = None):
+    """K3 at (dims, rows a member): a function that launches it once, through
+    the wrapper, or with ``route`` on that route of the chain's entry
+    (``kernels.K3_ROUTES``) whatever the wrapper would pick."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED)
     stack = _stack(dtype, dims, g)
     x = torch.randn((MEMBERS, rows, dims[0]), generator=g).to("cuda")
     tiles = K.pack_tiles(stack)
-    return lambda: K.fused_ensemble_mlp(x, stack, tiles=tiles)
+    if route is None:
+        return lambda: K.fused_ensemble_mlp(x, stack, tiles=tiles)
+    from mbrl_tpu_torch.ops.build import load_library
+
+    out = torch.empty((MEMBERS, rows, dims[-1]), device="cuda")
+    blocks = K.k3_blocks(route, rows, MEMBERS, K.sm_count(x.device))
+    args = (x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
+            K._dims_arg(stack), stack.num_products, MEMBERS, rows, blocks,
+            K.ACTIVATION_CODES[stack.activation], int(stack.low_precision),
+            tiles.layout.member_elems, stack.ws.data_ptr(), K.K3_ROUTES.index(route))
+
+    def launch():
+        code = load_library().mbrl_ensemble_mlp(*args, K._stream(x.device))
+        if code != 0:
+            raise RuntimeError(f"K3 on the {route} route: CUDA error {code}")
+        return out
+
+    return launch
 
 
 def _read(reader) -> list:
@@ -188,17 +228,43 @@ def timeline_wide_k2(dtype: torch.dtype, lib) -> dict:
     return _us(buf, wide_marks(len(WIDE_DIMS) - 1), 0)
 
 
-def timeline_k3(dtype: torch.dtype, rows: int, lib, dims=DIMS,
-                reader: str = "mbrl_timeline_k3") -> dict:
-    """Block 0's last tile, from that tile's start (mark 29), and the block's
-    whole time over its tiles."""
+def timeline_k3(dtype: torch.dtype, rows: int, lib, dims=DIMS) -> dict:
+    """K3 on the chain, on the route it takes at (dims, rows). One tile or two
+    tiles a block: block 0's last tile of each consumer warpgroup, from that
+    tile's start (mark 29; warpgroup 1's at 32 + k), and the block's whole
+    time over its tiles. A cluster: block 0's marks from its start."""
     from mbrl_tpu_torch.ops import kernels as K
 
-    buf = _run(k3_launch(dtype, dims, rows), getattr(lib, reader))
-    if dims == DIMS:
-        names = {k: n for k, n in marks(len(dims) - 1).items() if 2 <= k < 29 and k != 26}
-    else:
-        names = {k: n for k, n in wide_marks(len(dims) - 1).items() if 2 <= k < 29 or k > PRODUCER + 2}
+    buf = _run(k3_launch(dtype, dims, rows), lib.mbrl_timeline_k3)
+    sms = K.sm_count(torch.device("cuda"))
+    route = K.k3_route(rows, MEMBERS, sms, dtype == torch.bfloat16)
+    blocks = K.k3_blocks(route, rows, MEMBERS, sms)
+    out = {"dims": list(dims), "rows_per_member": rows, "route": route, "blocks": blocks,
+           "block_us": round((buf[30] - buf[0]) / 1e3, 3)}
+    names = {k: n for k, n in marks(len(dims) - 1).items() if 2 <= k < 29 and k not in (26, 27)}
+    names[30] = "head_written"
+    if route == "cluster":
+        names = {k: n.replace("_products", "_written").replace("_epilogue", "_cluster_met")
+                 for k, n in names.items() if (k < 18 and k % 3 != 1) or k == 30}
+        return {**out, "us_since_start": _us(buf, names, 0)}
+    if route == "tile":
+        out["tiles_of_block_0"] = len(K.block_tiles(0, rows, MEMBERS, blocks))
+        return {**out, "last_tile_us_since_its_start": _us(buf, names, 29)}
+    out["pairs_of_block_0"] = len(K.block_pairs(0, rows, MEMBERS, blocks))
+    for wg in (0, 1):  # each warpgroup's last tile, and its marks from the block's start
+        own = {32 * wg + k: n for k, n in names.items() if k not in range(18, 26)}
+        own[32 * wg + 29] = "tile_begun"
+        out[f"warpgroup{wg}_last_tile_us_since_block_start"] = _us(buf, own, 0)
+    return out
+
+
+def timeline_k3_wide(dtype: torch.dtype, rows: int, lib, dims) -> dict:
+    """K3's wide route: block 0's last tile, from that tile's start (mark
+    29), and the block's whole time over its tiles."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    buf = _run(k3_launch(dtype, dims, rows), lib.mbrl_timeline_k3_wide)
+    names = {k: n for k, n in wide_marks(len(dims) - 1).items() if 2 <= k < 29 or k > PRODUCER + 2}
     names[30] = "head_written"
     blocks = K.persistent_blocks(rows, MEMBERS, K.sm_count(torch.device("cuda")))
     return {
@@ -231,9 +297,11 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def launch_ms(repeats: int) -> dict:
+def launch_ms(repeats: int, routes: bool = False) -> dict:
     """ms a launch of every chain kernel at the main path's shapes, each
-    ``repeats`` times (in turns over the kernels, so that drift spreads)."""
+    ``repeats`` times (in turns over the kernels, so that drift spreads);
+    with ``routes``, K3 also on the routes it does not pick
+    (``K3_ROUTE_SHAPES``)."""
     launches = {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for shape, (dims, rows, out) in K2_SHAPES.items():
@@ -241,6 +309,16 @@ def launch_ms(repeats: int) -> dict:
         launches[f"K1@A/{name}"] = k1_launch(dtype)
         for shape, (dims, rows) in K3_SHAPES.items():
             launches[f"K3@{shape}/{name}"] = k3_launch(dtype, dims, rows)
+        if routes:  # the routes K3 does not pick at these shapes
+            from mbrl_tpu_torch.ops import kernels as K
+
+            sms = K.sm_count(torch.device("cuda"))
+            for shape in K3_ROUTE_SHAPES:
+                dims, rows = K3_SHAPES[shape]
+                for route in K.K3_ROUTES:
+                    picked = K.k3_route(rows, MEMBERS, sms, dtype == torch.bfloat16)
+                    if route != picked and (route != "cluster" or rows <= K.MAX_TILE):
+                        launches[f"K3@{shape}/{name}/{route}"] = k3_launch(dtype, dims, rows, route)
     times = {k: [] for k in launches}
     for _ in range(repeats):
         for k, fn in launches.items():
@@ -253,6 +331,9 @@ def main(argv=None) -> int:
     parser.add_argument("--ms", action="store_true", help="time each chain kernel a launch")
     parser.add_argument("--root", help="time the package of the checkout at this directory")
     parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--routes", action="store_true",
+                        help="with --ms, time K3 on every route at K3_ROUTE_SHAPES")
+    parser.add_argument("--k3", action="store_true", help="the phase tables of K3 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chain_timeline: needs a CUDA device", file=sys.stderr)
@@ -267,7 +348,7 @@ def main(argv=None) -> int:
         build.build(verbose=True)  # ptxas' registers and spills of each kernel, to stderr
         build.load_library()
         print(json.dumps({"root": args.root or ".", "library": build.library_path().name,
-                          "ms": launch_ms(args.repeats)}), flush=True)
+                          "ms": launch_ms(args.repeats, args.routes)}), flush=True)
         return 0
     build.EXTRA_FLAGS = ("-DTC_TIMELINE",)
     lib = build.load_library()
@@ -275,6 +356,12 @@ def main(argv=None) -> int:
                    "mbrl_timeline_k3_wide"):
         getattr(lib, reader).argtypes = [ctypes.c_void_p]
     dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
+    for shape, (dims, rows) in K3_TIMELINES.items():
+        for name, dtype in dtypes:
+            print(json.dumps({"kernel": "K3", "shape": shape, "dtype": name,
+                              **timeline_k3(dtype, rows, lib, dims)}), flush=True)
+    if args.k3:
+        return 0
     for shape in K2_SHAPES:
         for name, dtype in dtypes:
             print(json.dumps({"kernel": "K2", "shape": shape, "dtype": name,
@@ -282,18 +369,13 @@ def main(argv=None) -> int:
     for name, dtype in dtypes:
         print(json.dumps({"kernel": "K1", "shape": "A", "dtype": name, **timeline_k1(dtype, lib)}),
               flush=True)
-    for rows in (ROWS, LONG_ROWS):
-        for name, dtype in dtypes:
-            print(json.dumps({"kernel": "K3", "dtype": name, **timeline_k3(dtype, rows, lib)}),
-                  flush=True)
     for name, dtype in dtypes:
         print(json.dumps({"kernel": "K2 wide", "dtype": name, "dims": list(WIDE_DIMS),
                           "us_since_start": timeline_wide_k2(dtype, lib)}), flush=True)
     for rows, dims in ((ROWS, WIDE_DIMS), (LONG_ROWS, (23,) + WIDE_DIMS[1:])):
         for name, dtype in dtypes:
             print(json.dumps({"kernel": "K3 wide", "dtype": name,
-                              **timeline_k3(dtype, rows, lib, dims, "mbrl_timeline_k3_wide")}),
-                  flush=True)
+                              **timeline_k3_wide(dtype, rows, lib, dims)}), flush=True)
     return 0
 
 

@@ -36,7 +36,10 @@ per call either way. The wide route runs on the tensor cores too (K1 and K2
 in ``csrc/wide_tc.cu``, K3 in ``csrc/ensemble_mlp_wide.cu``, all on
 ``csrc/wide_tc.cuh``), on weights packed by :func:`pack_wide`
 (:class:`WideTileLayout`: the chain's layout in passes of ``WIDE_PASS``
-columns) with the activations streamed from a per-block scratch.
+columns) with the activations streamed from a per-block scratch. On the
+chain K3 takes one of three routes by shape (:func:`k3_route`): one tile a
+block in one wave, two tiles a block past it, a cluster of blocks a member
+at a few rows a member.
 """
 from __future__ import annotations
 
@@ -86,6 +89,17 @@ TC_SMEM_BYTES = 232_448
 TC_HEAD_SPLIT = 40
 # output columns of one pass of the wide tensor-core route (csrc/wide_tc.cuh)
 WIDE_PASS = 256
+# K3's routes on the chain (csrc/ensemble_mlp.cu, in the entry's numbering):
+# one tile a block, two tiles a block, a cluster of blocks a member; the
+# two-tile route's ring buffers at most and A bytes a k-step of a warpgroup;
+# the blocks of a member's cluster at most
+K3_ROUTES = ("tile", "pair", "cluster")
+PAIR_MAX_STAGES = 8
+PAIR_SLOT_BYTES = 2048
+CLUSTER_MAX = 8
+# rows a member up to which K3 takes the cluster route, f32 and bf16: on an
+# H100 it beat one tile a block at 8 rows in f32 and lost at 8 in bf16
+CLUSTER_ROWS = {False: 8, True: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,11 +227,39 @@ class ChainLayout:
         rows = MAX_TILE
         head = rows * self.n_pad[-1] * 4 * (2 if self.head_split else 1)
         a = max(self.copies * rows * max(self.k_pad) * self.esize, head)
-        stage = max(min(self.chunk, k) * n * self.esize * self.copies
-                    for k, n in zip(self.k_pad, self.n_pad))
         # barriers (128 bytes) and the logvar bounds (1 KB) besides
         free = TC_SMEM_BYTES - 128 - 1024 - _round_up(a, 128) - extra_bytes
-        return min(TC_MAX_STAGES, free // stage)
+        return min(TC_MAX_STAGES, free // self.stage_bytes)
+
+    @functools.cached_property
+    def stage_bytes(self) -> int:
+        """One ring buffer: the largest chunk."""
+        return max(min(self.chunk, k) * n * self.esize * self.copies
+                   for k, n in zip(self.k_pad, self.n_pad))
+
+    @functools.cached_property
+    def pair_a_bytes(self) -> int:
+        """K3's two-tile route: one warpgroup's A, a fragment-ordered copy of
+        ``PAIR_SLOT_BYTES`` a k-step (one f32 or bf16 copy of 64 rows)."""
+        return max(self.k_pad) // (16 if self.low_precision else 8) * PAIR_SLOT_BYTES
+
+    @functools.cached_property
+    def pair_bias_bytes(self) -> int:
+        """K3's two-tile route: one warpgroup's copy of a member's biases."""
+        return _round_up(4 * sum(self.dims[1:]), 16)
+
+    @functools.cached_property
+    def pair_stages(self) -> int:
+        """Ring buffers of K3's two-tile route beside the barriers, two
+        warpgroups' A and their biases (``make_pair_desc``); below 2 it
+        does not fit."""
+        free = TC_SMEM_BYTES - 128 - 2 * self.pair_a_bytes - 2 * self.pair_bias_bytes
+        return min(PAIR_MAX_STAGES, free // self.stage_bytes)
+
+    @functools.cached_property
+    def pair_smem_bytes(self) -> int:
+        return (128 + 2 * self.pair_a_bytes + self.pair_stages * self.stage_bytes
+                + 2 * self.pair_bias_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -397,6 +439,65 @@ def block_tiles(
     member-major list, so the blocks' shares differ by at most one tile."""
     num_tiles = -(-rows_per_member // MAX_TILE)
     return [divmod(w, num_tiles) for w in range(block, num_members * num_tiles, blocks)]
+
+
+def cluster_size(num_members: int, num_sms: int) -> int:
+    """Blocks of a member's cluster on K3's cluster route: as many as the
+    card holds for every member at once, at most ``CLUSTER_MAX``."""
+    return min(CLUSTER_MAX, num_sms // num_members)
+
+
+def k3_route(rows_per_member: int, num_members: int, num_sms: int, low_precision: bool) -> str:
+    """K3's route on the chain (mirrors ``mbrl_ensemble_mlp``): a cluster of
+    blocks a member for at most ``CLUSTER_ROWS`` rows a member when the card
+    holds clusters of two or more for every member; one tile a block while
+    the (member, tile) pairs fit in one wave; two tiles a block past it."""
+    num_tiles = -(-rows_per_member // MAX_TILE)
+    if (rows_per_member <= CLUSTER_ROWS[low_precision]
+            and cluster_size(num_members, num_sms) >= 2):
+        return "cluster"
+    return "pair" if num_members * num_tiles > num_sms else "tile"
+
+
+def cluster_smem_bytes(dims: Sequence[int], rows_per_member: int) -> int:
+    """Shared memory of a block on K3's cluster route (``make_plain_desc``):
+    two (rows, widest input) f32 activation buffers and the 8 warps' partial
+    sums of 8 rows x 32 columns."""
+    return 4 * (2 * rows_per_member * max(dims[:-1]) + 8 * 8 * 32)
+
+
+def pair_blocks(rows_per_member: int, num_members: int, num_sms: int) -> int:
+    """K3's grid on the two-tile route: one block per (member, tile pair)
+    until they outgrow the card's SMs, then one persistent block per SM
+    that walks the pairs (:func:`block_pairs`)."""
+    num_tiles = -(-rows_per_member // MAX_TILE)
+    return min(num_members * -(-num_tiles // 2), num_sms)
+
+
+def block_pairs(
+    block: int, rows_per_member: int, num_members: int, blocks: int
+) -> List[Tuple[int, Tuple[int, ...]]]:
+    """The (member, (tile, tile)) pairs that block ``block`` of ``blocks``
+    runs on K3's two-tile route, in order: every ``blocks``-th of the
+    member-major list of pairs, so the blocks' shares differ by at most one
+    pair; a member's odd last tile is a pair of one (the kernel's second
+    warpgroup idles through it)."""
+    num_tiles = -(-rows_per_member // MAX_TILE)
+    per = -(-num_tiles // 2)
+    out = []
+    for p in range(block, num_members * per, blocks):
+        e, k = divmod(p, per)
+        out.append((e, tuple(t for t in (2 * k, 2 * k + 1) if t < num_tiles)))
+    return out
+
+
+def k3_blocks(route: str, rows_per_member: int, num_members: int, num_sms: int) -> int:
+    """K3's grid on the chain for ``route`` (:func:`k3_route`)."""
+    if route == "cluster":
+        return num_members * cluster_size(num_members, num_sms)
+    if route == "pair":
+        return pair_blocks(rows_per_member, num_members, num_sms)
+    return persistent_blocks(rows_per_member, num_members, num_sms)
 
 
 def pick_tile(rows_per_member: int, max_tile: int = MAX_TILE, min_tile: int = 8) -> Optional[int]:
@@ -656,13 +757,17 @@ def fused_ensemble_mlp(
     tiles = _check_tiles(stack, tiles, x.device)
     out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
     lib = load_library()
-    blocks = persistent_blocks(rows, e, sm_count(x.device))
     act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
     head = (x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(), _dims_arg(stack))
-    tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
     if not isinstance(tiles.layout, WideTileLayout):
-        code = lib.mbrl_ensemble_mlp(*head, *tail, _stream(x.device))
+        route = k3_route(rows, e, sm_count(x.device), stack.low_precision)
+        blocks = k3_blocks(route, rows, e, sm_count(x.device))
+        tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
+        code = lib.mbrl_ensemble_mlp(*head, *tail, stack.ws.data_ptr(), K3_ROUTES.index(route),
+                                     _stream(x.device))
     else:
+        blocks = persistent_blocks(rows, e, sm_count(x.device))
+        tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
         scratch = _wide_scratch(tiles.layout, x.device, blocks)
         code = lib.mbrl_ensemble_mlp_wide(
             *head, _device_dims(stack.dims, x.device).data_ptr(), *tail, scratch.data_ptr(),

@@ -3,7 +3,12 @@ fused_ensemble_mlp), on the CPU: ``GaussianMLP._forward_sharded`` under
 ``ModelEnv.step``, and what surrounds the kernel on the card.
 
 - the persistent tile schedule (``persistent_blocks`` / ``block_tiles``, which
-  the kernel's tile loop mirrors) covers every tile of every member once;
+  the kernel's tile loop mirrors) covers every tile of every member once, and
+  so does the two-tile route's pair schedule (``pair_blocks`` /
+  ``block_pairs``), each pair within one member;
+- the route K3 takes on the chain (``k3_route`` / ``k3_blocks``, mirrored from
+  ``mbrl_ensemble_mlp``) by shape, and the arguments the wrapper hands the
+  entry for each route, against a stand-in library;
 - the widths: ``_forward_sharded`` goes through the wrapper at every width and
   matches mbrl_tpu's ``_forward_sharded`` on converted weights (1e-5, f32
   float-sum order); on the card the tensor-core chain takes up to 256 columns
@@ -50,6 +55,109 @@ def test_tile_schedule_at_the_main_shapes():
     assert kernels.persistent_blocks(20_000, 5, NUM_SMS) == NUM_SMS
     sizes = {len(kernels.block_tiles(b, 20_000, 5, NUM_SMS)) for b in range(NUM_SMS)}
     assert sizes == {11, 12}
+
+
+@pytest.mark.parametrize("members", [1, 5, 7])
+@pytest.mark.parametrize("rows", [65, 1_700, 16_000, 20_000, 20_032])
+def test_pair_schedule_covers_every_tile_once(rows, members):
+    num_tiles = -(-rows // kernels.MAX_TILE)
+    blocks = kernels.pair_blocks(rows, members, NUM_SMS)
+    assert 1 <= blocks <= min(NUM_SMS, members * -(-num_tiles // 2))
+    shares = [kernels.block_pairs(b, rows, members, blocks) for b in range(blocks)]
+    seen = sorted((m, t) for share in shares for m, pair in share for t in pair)
+    assert seen == [(m, t) for m in range(members) for t in range(num_tiles)]
+    for share in shares:
+        assert share == sorted(share)  # member-major
+        for m, pair in share:  # two tiles of one member, 2k and 2k + 1; an odd last one alone
+            assert pair[0] % 2 == 0 and list(pair) == list(range(pair[0], pair[0] + len(pair)))
+            assert len(pair) == 2 or pair[0] == num_tiles - 1
+    sizes = [len(s) for s in shares]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_pair_schedule_at_the_main_shapes():
+    # 100,000 rows over 5 elites: 313 tiles a member (the last one alone), 785
+    # pairs over 132 blocks, 5 or 6 each; config M's 80,000: 625 pairs, 4 or 5
+    assert kernels.pair_blocks(20_000, 5, NUM_SMS) == NUM_SMS
+    assert {len(kernels.block_pairs(b, 20_000, 5, NUM_SMS)) for b in range(NUM_SMS)} == {5, 6}
+    assert {len(kernels.block_pairs(b, 16_000, 5, NUM_SMS)) for b in range(NUM_SMS)} == {4, 5}
+    assert kernels.block_pairs(0, 20_000, 5, NUM_SMS)[:2] == [(0, (0, 1)), (0, (264, 265))]
+    assert (0, (312,)) in kernels.block_pairs(156 % NUM_SMS, 20_000, 5, NUM_SMS)
+
+
+@pytest.mark.parametrize("low_precision", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,members,route,blocks", [
+    (1, 5, "cluster", 40),        # one row per elite: clusters of 8 blocks a member
+    (2, 5, "cluster", 40),
+    (8, 5, None, 40),             # f32's last cluster shape; bf16's one tile a block
+    (9, 5, "tile", 5),
+    (64, 5, "tile", 5),
+    (65, 5, "tile", 10),
+    (1, 7, "cluster", 56),        # all 7 members: 8 blocks each still fit
+    (1, 20, "cluster", 120),      # clusters of 6
+    (1, 67, "tile", 67),          # 132 // 67 = 1: no cluster of two for every member
+    (1_600, 5, "tile", 125),      # C8k and D: one wave
+    (1_664, 5, "tile", 130),
+    (1_700, 5, "pair", 70),       # 135 tiles: past one wave, 14 pairs a member
+    (16_000, 5, "pair", 132),     # M
+    (20_000, 5, "pair", 132),     # C100k
+])
+def test_k3_route_by_shape(rows, members, route, blocks, low_precision):
+    if route is None:
+        route = "tile" if low_precision else "cluster"
+        blocks = 5 if low_precision else blocks
+    assert kernels.k3_route(rows, members, NUM_SMS, low_precision) == route
+    assert kernels.k3_blocks(route, rows, members, NUM_SMS) == blocks
+    if route == "cluster":
+        assert members * kernels.cluster_size(members, NUM_SMS) == blocks <= NUM_SMS
+        assert 2 <= kernels.cluster_size(members, NUM_SMS) <= kernels.CLUSTER_MAX
+
+
+class _Library:
+    """Stands in for the built library: records each call after checking it
+    against the entry's ctypes signature."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        from mbrl_tpu_torch.ops import build
+
+        argtypes = build.SIGNATURES[name]
+
+        def entry(*args):
+            assert len(args) == len(argtypes)
+            for t, a in zip(argtypes, args):
+                t.from_param(a)
+            self.calls.append((name, args))
+            return 0
+
+        return entry
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wrapper_hands_each_route_its_grid_and_weights(monkeypatch, dtype):
+    from mbrl_tpu_torch.ops import build
+
+    lib = _Library()
+    monkeypatch.setattr(kernels, "_dispatch", lambda t: True)
+    monkeypatch.setattr(kernels, "_stream", lambda device: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: NUM_SMS)
+    monkeypatch.setattr(build, "load_library", lambda: lib)
+    dims = (24, 200, 200, 36)
+    stack = kernels.pack_mlp([torch.randn(5, 24, 200), torch.randn(5, 200, 200)],
+                             [torch.zeros(5, 1, 200)] * 2, torch.randn(5, 200, 36),
+                             torch.zeros(5, 1, 36), "silu", dtype=dtype)
+    tiles = kernels.pack_tiles(stack)
+    for rows in (1, 100, 20_000):
+        kernels.fused_ensemble_mlp(torch.zeros((5, rows, 24)), stack, tiles=tiles)
+    routes = [kernels.k3_route(r, 5, NUM_SMS, dtype == torch.bfloat16) for r in (1, 100, 20_000)]
+    assert routes == ["cluster", "tile", "pair"]
+    for (name, args), rows, route in zip(lib.calls, (1, 100, 20_000), routes):
+        assert name == "mbrl_ensemble_mlp" and args[7] == rows
+        assert args[8] == kernels.k3_blocks(route, rows, 5, NUM_SMS)
+        assert args[11] == kernels.ChainLayout(dims, dtype == torch.bfloat16).member_elems
+        assert args[12] == stack.ws.data_ptr() and args[13] == kernels.K3_ROUTES.index(route)
 
 
 def _pair(hid, **kw):

@@ -263,3 +263,169 @@ def test_tensor_core_wrappers_refuse_what_they_cannot_take():
         tk._check_tiles(stack, tk.pack_chain(_stack((24, 200, 36), torch.bfloat16)), cpu)
     with pytest.raises(TypeError):  # the right layout in the wrong dtype
         tk._check_tiles(stack, tk.ChainTiles(tiles.w.to(torch.bfloat16), tiles.layout), cpu)
+
+
+# --------------------------------------------------------------------------- #
+# K3's two-tile and cluster routes (csrc/ensemble_mlp.cu)
+# --------------------------------------------------------------------------- #
+_WIDTHS = (1, 5, 8, 13, 16, 24, 36, 100, 200, 208, 255, 256)
+
+
+@pytest.mark.parametrize("low_precision", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("depth", [1, 2, 5, 9])
+def test_pair_and_cluster_plans_fit_wherever_the_chain_does(depth, low_precision):
+    """Every stack the chain takes (``takes_chain``: up to 9 products, widths
+    up to 256) fits the two-tile route's plan (two warpgroups' A, their
+    biases and at least two ring buffers) and the cluster route's (two
+    activation buffers of 64 rows and the k-slices' partial sums) in one
+    block's 232,448 bytes, so neither route sends a stack elsewhere."""
+    for hid in _WIDTHS:
+        for edge in (1, 36, 256):
+            dims = (edge,) + (hid,) * (depth - 1) + (edge,)
+            assert tk.takes_chain(dims, low_precision)
+            lay = tk.ChainLayout(dims, low_precision)
+            assert lay.pair_stages >= 2
+            assert lay.pair_smem_bytes <= tk.TC_SMEM_BYTES
+            assert tk.cluster_smem_bytes(dims, tk.MAX_TILE) <= tk.TC_SMEM_BYTES
+
+
+@pytest.mark.parametrize("low_precision,stages", [(False, 4), (True, 6)], ids=["f32", "bf16"])
+def test_pair_plan_at_the_main_shape(low_precision, stages):
+    """At 4x200 (f32 A 51.2 KB a warpgroup, bf16 26.6 KB, one copy each),
+    the ring keeps 4 f32 or 6 bf16 buffers; f32's hi and lo copies of two
+    tiles would leave room for none."""
+    lay = tk.ChainLayout((23, 200, 200, 200, 200, 36), low_precision)
+    assert lay.pair_a_bytes == (26_624 if low_precision else 51_200)
+    assert lay.pair_stages == stages
+    if not low_precision:
+        assert 2 * 2 * 64 * 200 * 4 + 2 * lay.stage_bytes > tk.TC_SMEM_BYTES
+
+
+def _slot(q: int, warp: int, lane: int) -> int:
+    """pair_slot: byte offset of a lane's 16-byte A fragment slot."""
+    return ((q * 4 + warp) * 32 + (lane ^ ((lane >> 2) & 2))) * 16
+
+
+def _pair_fragments(a: np.ndarray, low_precision: bool):
+    """A (64, K) tile through the two-tile route's shared memory: stored as
+    pair_store leaves a product's D fragment (or the input tile), read back
+    as pair_fragment gathers each lane's A fragment. Returns {(q, warp, lane):
+    four values} in register order (bf16: the (lo, hi) pairs, unpacked)."""
+    kstep = 16 if low_precision else 8
+    region = {}
+    for q in range(a.shape[1] // kstep):
+        for warp in range(4):
+            for lane in range(32):
+                r, c = 16 * warp + lane // 4, kstep * q + 2 * (lane % 4)
+                if low_precision:  # the fragment itself
+                    vals = [a[r, c], a[r, c + 1], a[r + 8, c], a[r + 8, c + 1],
+                            a[r, c + 8], a[r, c + 9], a[r + 8, c + 8], a[r + 8, c + 9]]
+                else:  # (r, c), (r + 8, c), (r, c + 1), (r + 8, c + 1)
+                    vals = [a[r, c], a[r + 8, c], a[r, c + 1], a[r + 8, c + 1]]
+                assert _slot(q, warp, lane) not in region
+                region[_slot(q, warp, lane)] = vals
+    frags = {}
+    for (q, warp, lane) in [(q, w, l) for q in range(a.shape[1] // kstep) for w in range(4)
+                            for l in range(32)]:
+        if low_precision:
+            frags[q, warp, lane] = region[_slot(q, warp, lane)]
+        else:
+            t, g4 = lane % 4, lane & ~3
+            p = region[_slot(q, warp, g4 + t // 2)][2 * (t & 1): 2 * (t & 1) + 2]
+            s = region[_slot(q, warp, g4 + 2 + t // 2)][2 * (t & 1): 2 * (t & 1) + 2]
+            frags[q, warp, lane] = p + s
+    return frags
+
+
+@pytest.mark.parametrize("low_precision", [False, True], ids=["f32", "bf16"])
+def test_pair_fragments_are_wgmma_register_operands(low_precision):
+    """Each lane's fragment holds the A elements that wgmma's register
+    operand takes (PTX's m64nNk8 tf32 and m64nNk16 bf16 A fragments: warp w
+    rows 16w + g and + 8, g = lane / 4; tf32 columns t and t + 4, bf16
+    column pairs 2t and 2t + 8, t = lane % 4), and the swizzled slots hit no
+    shared-memory bank twice within a phase: the f32 8-byte reads (16
+    lanes) and the 16-byte stores (8 lanes)."""
+    k = 48 if low_precision else 40
+    a = np.arange(64 * k, dtype=np.float64).reshape(64, k)
+    for (q, warp, lane), got in _pair_fragments(a, low_precision).items():
+        r, t = 16 * warp + lane // 4, lane % 4
+        if low_precision:
+            c = 16 * q + 2 * t
+            want = [a[r, c], a[r, c + 1], a[r + 8, c], a[r + 8, c + 1],
+                    a[r, c + 8], a[r, c + 9], a[r + 8, c + 8], a[r + 8, c + 9]]
+        else:
+            c = 8 * q + t
+            want = [a[r, c], a[r + 8, c], a[r, c + 4], a[r + 8, c + 4]]
+        assert got == want, (q, warp, lane)
+    for q, warp in [(0, 0), (3, 2)]:
+        for half in (0, 16):  # 8-byte reads of lanes 4g + t/2 (+ 2), words 2(t % 2)..
+            for second in (0, 2):
+                banks = set()
+                for lane in range(half, half + 16):
+                    t, g4 = lane % 4, lane & ~3
+                    word = (_slot(q, warp, g4 + second + t // 2) + 8 * (t & 1)) // 4
+                    banks |= {word % 32, (word + 1) % 32}
+                assert len(banks) == 32
+        for quarter in range(0, 32, 8):  # 16-byte stores of 8 lanes
+            banks = {(_slot(q, warp, lane) // 4 + i) % 32 for lane in range(quarter, quarter + 8)
+                     for i in range(4)}
+            assert len(banks) == 32
+
+
+def _emulated_pair_chain(x: torch.Tensor, stack: tk.MLPStack) -> torch.Tensor:
+    """The f32 two-tile route's arithmetic in plain torch: each product's A
+    as the route holds it (f32 in shared memory, gathered by fragment and
+    split into tf32 hi and lo in registers), its three products a k-step at a
+    time on one accumulator of the full width (a head is not split by K),
+    the bias added in the epilogue."""
+    tiles = tk.pack_chain(stack)
+    act = tk.ACTIVATIONS[stack.activation]
+    h = x.float()
+    for i in range(stack.num_products):
+        w_hi, w_lo = (c.double() for c in tk.unpack_chain(tiles, i))
+        _, b = stack.product(i)
+        kp = tiles.layout.k_pad[i]
+        a = F.pad(h, (0, kp - h.shape[-1]))
+        gathered = torch.zeros_like(a)
+        for e in range(a.shape[0]):
+            for r0 in range(0, a.shape[1], 64):
+                tile = np.zeros((64, kp), np.float32)
+                rows = a[e, r0:r0 + 64].numpy()
+                tile[: rows.shape[0]] = rows
+                back = np.zeros_like(tile)
+                for (q, warp, lane), (v0, v1, v2, v3) in _pair_fragments(tile, False).items():
+                    rr, c = 16 * warp + lane // 4, 8 * q + lane % 4
+                    back[rr, c], back[rr + 8, c], back[rr, c + 4], back[rr + 8, c + 4] = v0, v1, v2, v3
+                gathered[e, r0:r0 + 64] = torch.from_numpy(back[: rows.shape[0]])
+        a_hi = tk.rna_tf32(gathered)
+        a_lo = tk.rna_tf32(gathered - a_hi)
+        b = F.pad(b, (0, tiles.layout.n_pad[i] - b.shape[-1]))
+        out = _kernel_sum(a_hi.double(), a_lo.double(), w_hi, w_lo, b, False)[..., : stack.dims[i + 1]]
+        h = out if i == stack.num_products - 1 else act(out)
+    return h
+
+
+@pytest.mark.parametrize("activation", ["silu", "tanh"])
+def test_pair_route_emulation_matches_jax_kernel_and_plain(activation):
+    """The register-A 3xTF32 split of the two-tile route against the JAX f32
+    kernel in interpret mode and the plain version, within 1e-5 (as
+    test_3xtf32_emulation_matches_jax_kernel_and_plain): a ragged second
+    tile (70 rows a member) and a narrow head, which this route does not
+    split by K."""
+    from mbrl_tpu.models.gaussian_mlp import _ACTIVATIONS
+
+    e, dims = 2, (24, 64, 64, 36)
+    stack = _stack(dims, torch.float32, seed=7, e=e, activation=activation)
+    x = np.random.default_rng(8).standard_normal((e, 70, dims[0])).astype(np.float32)
+    got = _emulated_pair_chain(torch.from_numpy(x), stack).numpy()
+    layers = [stack.product(i) for i in range(stack.num_products)]
+    ref_jax = pk.fused_ensemble_mlp(
+        jnp.asarray(x),
+        tuple(jnp.asarray(w.numpy()) for w, _ in layers[:-1]),
+        tuple(jnp.asarray(b.numpy()) for _, b in layers[:-1]),
+        jnp.asarray(layers[-1][0].numpy()), jnp.asarray(layers[-1][1].numpy()),
+        activation=_ACTIVATIONS[activation], tile=14, interpret=True,
+    )
+    ref_plain = tk.fused_ensemble_mlp_plain(torch.from_numpy(x), stack).numpy()
+    np.testing.assert_allclose(got, np.asarray(ref_jax, np.float32), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, ref_plain, rtol=1e-5, atol=1e-5)
