@@ -319,21 +319,24 @@ def normal_moments(z: torch.Tensor, what: str):
     return zm, zv, zk
 
 
-def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
+def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str, **kw):
     """K2 on ``x``: its mean path against its plain version, its samples
-    against N(0,1), and its times and bound."""
+    against N(0,1), and its times and bound; ``kw`` goes to the wrapper (a
+    wide route's ``cluster``)."""
     out = stack.dims[-1] // 2
     tol = TOL[("K2", dt_name)]
     # the layout of its route, packed once as the rollout does
     tiles = K.pack_tiles(stack)
-    got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=False, tiles=tiles)
+    got = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=False, tiles=tiles,
+                                        **kw)
     ref = K.fused_ensemble_mlp_gaussian_plain(g, x, stack, max_lv, min_lv, out, sample=False)
     err, ok = max_err(got, ref, tol)
     check(ok, f"K2 {dt_name} ({what}, mean) disagrees with its plain version: max abs err {err}")
     # sampled path: z = (draw - mean) / sigma must be standard normal
     raw = K.fused_ensemble_mlp_plain(x, stack)
     sigma = torch.exp(0.5 * K.bound_logvar(raw[..., out:], max_lv, min_lv))
-    draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=True, tiles=tiles)
+    draws = K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, sample=True, tiles=tiles,
+                                          **kw)
     zm, zv, zk = normal_moments((draws - ref) / sigma, f"K2 {dt_name} ({what})")
     e, rows, _ = x.shape
     flops = 2.0 * e * rows * macs_per_row(stack.dims)
@@ -341,7 +344,7 @@ def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
     bms, bby = bound(flops, nbytes, stack.low_precision)
 
     def launch():
-        return K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, tiles=tiles)
+        return K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, tiles=tiles, **kw)
 
     return {
         "max_abs_err": err, "tol": tol, "rows": e * rows, "z_mean": zm, "z_var": zv,
@@ -352,10 +355,11 @@ def check_k2(K, g, x, stack, max_lv, min_lv, dt_name: str, what: str):
     }
 
 
-def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str):
+def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str, **kw):
     """K1 at config A's shape (B=8000, H=30, obs 17, act 6, tile 64): its mean
     path against its plain version, its sampled returns against the plain
-    version's within standard error, and its times and bound."""
+    version's within standard error, and its times and bound; ``kw`` goes to
+    the wrapper (a wide route's ``cluster``)."""
     dev = torch.device("cuda")
     shard = BATCH // ELITES
     tile = K.pick_tile(shard)
@@ -369,7 +373,7 @@ def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str):
     dmask = torch.ones((1, OBS_A), device=dev)
     args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, OBS_A + 1, tile)
     tiles = K.pack_tiles(stack, K.k1_extra_bytes(OBS_A, OBS_A + 1))
-    got = K.fused_rollout_returns(g, *args, sample=False, tiles=tiles)
+    got = K.fused_rollout_returns(g, *args, sample=False, tiles=tiles, **kw)
     ref = K.fused_rollout_returns_plain(g, *args, sample=False)
     err, ok = max_err(got, ref, TOL[("K1", dt_name)])
     check(ok, f"K1 {dt_name} {what} (mean path) disagrees with its plain version: max abs err {err}")
@@ -381,7 +385,7 @@ def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str):
         runs = runs.reshape(-1, POP).double()
         return runs.mean(0), runs.var(0), runs.shape[0]
 
-    mk, vk, nk = per_seq(functools.partial(K.fused_rollout_returns, tiles=tiles))
+    mk, vk, nk = per_seq(functools.partial(K.fused_rollout_returns, tiles=tiles, **kw))
     mp, vp, _ = per_seq(K.fused_rollout_returns_plain)
     se = torch.sqrt((vk + vp) / nk)
     z_max = float(((mk - mp).abs() / se).max())
@@ -394,8 +398,9 @@ def check_k1(K, g, stack, max_lv, min_lv, dt_name: str, what: str):
     return {
         "max_abs_err": err, "tol": TOL[("K1", dt_name)], "sampled_max_z": z_max,
         "sampled_var_ratio": var_ratio,
-        "ms": time_graph_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5),
-        "eager_ms": time_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles), 5, warmup=1),
+        "ms": time_graph_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles, **kw), 5),
+        "eager_ms": time_ms(lambda: K.fused_rollout_returns(g, *args, tiles=tiles, **kw), 5,
+                            warmup=1),
         "plain_ms": time_ms(lambda: K.fused_rollout_returns_plain(g, *args), 3, warmup=1),
         "bound_ms": bms, "bound_by": bby,
     }
@@ -629,11 +634,28 @@ def width_sweep(device: str = "cuda"):
     return {"max_abs_err": errs, "samples": samples}
 
 
+def wide_clusters(K, stack, k1: bool, tiles: int, members: int, what: str):
+    """K1's or K2's wide grid in clusters of ``kernels.WIDE_CLUSTER`` blocks
+    at ``tiles`` row tiles of each of ``members``: its blocks and clusters
+    beside the clusters the card holds at once; fails unless they fit in one
+    wave."""
+    cluster = K.WIDE_CLUSTER
+    blocks = K.wide_grid(tiles, cluster) * members
+    held = K.wide_max_active_clusters(stack, k1, cluster, torch.device("cuda"), OBS_A)
+    check(blocks // cluster <= held,
+          f"{what}: {blocks // cluster} clusters of {cluster} but the card holds {held} at once")
+    return {"cluster": cluster, "blocks": blocks, "clusters": blocks // cluster,
+            "max_active_clusters": held}
+
+
 def wide_kernel_checks():
     """K3, K2 and K1 on the wide route at ``WIDE_HID`` columns: the shapes of
     K3 ``C8k`` and ``C100k``, K2 ``B`` and K1 ``A`` with a 4 x ``WIDE_HID``
     model (the port's init, 5 elites), f32 and bf16, checked and timed as
-    ``kernel_checks`` does."""
+    ``kernel_checks`` does, on the route each wrapper picks (bf16 K1 and K2:
+    the activations resident in shared memory); then K2 and K1 in clusters of
+    ``kernels.WIDE_CLUSTER`` blocks that share each weight chunk, checked and
+    timed alike, their clusters in one wave."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED + 11)
@@ -646,6 +668,11 @@ def wide_kernel_checks():
         results[("K3@W512", dt_name)] = check_k3(K, x, stack, dt_name, f"{WIDE_HID} wide")
         results[("K2@W512", dt_name)] = check_k2(K, g, x, stack, max_lv, min_lv, dt_name,
                                                  f"{WIDE_HID} wide")
+        results[("K2@W512/cluster", dt_name)] = {
+            **check_k2(K, g, x, stack, max_lv, min_lv, dt_name, f"{WIDE_HID} wide, clusters",
+                       cluster=K.WIDE_CLUSTER),
+            **wide_clusters(K, stack, False, -(-(BATCH // ELITES) // K.MAX_TILE), ELITES,
+                            f"K2 {dt_name} {WIDE_HID} wide")}
         stack, max_lv, min_lv = elite_stack(OBS_A + ACT, OBS_A + 1, dtype, g, hid=WIDE_HID)
         # K3 at the MBPO rollout's shape: E=5 x S=20,000, in 23, head 36
         x = torch.randn((ELITES, MBPO_ROWS // ELITES, OBS_A + ACT), generator=g).to(dev)
@@ -654,6 +681,11 @@ def wide_kernel_checks():
         del x
         results[("K1@W512", dt_name)] = check_k1(K, g, stack, max_lv, min_lv, dt_name,
                                                  f"{WIDE_HID} wide")
+        results[("K1@W512/cluster", dt_name)] = {
+            **check_k1(K, g, stack, max_lv, min_lv, dt_name, f"{WIDE_HID} wide, clusters",
+                       cluster=K.WIDE_CLUSTER),
+            **wide_clusters(K, stack, True, BATCH // K.pick_tile(BATCH // ELITES), 1,
+                            f"K1 {dt_name} {WIDE_HID} wide")}
         print(f"wide route {WIDE_HID} {dt_name}: " + json.dumps(
             {k[0]: results[k] for k in results if k[1] == dt_name}), flush=True)
     return results

@@ -121,13 +121,18 @@ SIGNATURES = {
     "mbrl_ensemble_mlp_wide": [
         _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _P,
     ],
+    # K2 and K1 also take their cluster's blocks (kernels.wide_cluster) before the scratch
     "mbrl_ensemble_mlp_gaussian_wide": [
-        _U, _U, _P, _P, _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _P,
+        _U, _U, _P, _P, _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _I, _P, _LL,
+        _P,
     ],
     "mbrl_rollout_returns_wide": [
         _U, _U, _P, _P, _P, _P, _P, _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _LL, _P, _LL, _P,
+        _I, _I, _I, _LL, _I, _P, _LL, _P,
     ],
+    # K1 (1) or K2 (0), host dims, products, K1's carry floats, activation,
+    # bf16, cluster, and the count out
+    "mbrl_wide_max_active_clusters": [_I, _DIMS, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

@@ -6,6 +6,7 @@ and what each chain kernel takes a launch at the main path's shapes.
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms         # ms per launch
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --routes --repeats 3
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --root DIR --repeats 3
+    python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --wide --clusters --repeats 3
 
 The phase tables build the kernels with ``-DTC_TIMELINE`` (a library of its
 own in ``mbrl_tpu_torch/_build/``) and print, for block (0, 0), the
@@ -28,18 +29,28 @@ head 36), f32 and bf16; K1 at config A's (8,000 rows, H=30, in 23, head 36,
 one block per 64-row tile) with the last step of block 0 counted from that
 step's start, and the block's whole time.
 
-Then the wide route at 4x512 (``csrc/wide_tc.cuh``): K2 at config B's shape,
-and K3 at that shape and at S=20,000 (in 23), f32 and bf16, with the marks of
+Then the wide route at 4x512 (``csrc/wide_tc.cuh``): K2 at config B's shape
+one block a cluster (the plain ring; in bf16 the resident activations) and
+in clusters of ``kernels.WIDE_CLUSTER`` blocks, and K3
+at that shape and at S=20,000 (in 23), f32 and bf16, with the marks of
 ``produce_wide`` and ``consume_wide`` per product: on the consumers' side its
 first chunk landed, its products done, its epilogue fenced and handed on (the
 head: whole); on the producer's, the ready barrier passed and its last copy
-issued.
+issued. K2's line also gives the ring's pace in product 1 (a 512 x 512
+product): the µs a buffer, and the time the producer waited there for a
+buffer's release by every consumer of the cluster.
 
 ``--ms`` times each chain kernel instead, in CUDA graphs of 20 launches (the
 device time a launch, without the wrapper's host time) at the same shapes
 and at K3's (``K3_SHAPES``: D, C100k, M, one row per elite at CL-B, CL-A and
-DG, and the routes' limits), ``--repeats`` times over; ``--routes`` also
-times K3 on the routes it does not pick at ``K3_ROUTE_SHAPES``. With
+DG, and the routes' limits), and the wide route at 4x512 (K2 at B, K1 at A,
+K3 at C8k and C100k), ``--repeats`` times over, with the SHA-256 of each
+launch's first output; ``--routes`` also times K3 on the routes it does not
+pick at ``K3_ROUTE_SHAPES``, ``--clusters`` K1's and K2's wide route at the
+cluster sizes the wrappers do not pick, ``--wide`` the wide route alone. For
+a checkout with clusters it
+first prints K1's and K2's wide grids at each cluster size beside the
+clusters the card holds at once (``cudaOccupancyMaxActiveClusters``). With
 ``--root DIR`` it builds and times the package of another checkout at DIR
 (an earlier commit, say), through the same wrappers, so that two trees can
 be compared in one call on one card. Needs a CUDA device; exits 2 without
@@ -49,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import sys
 
@@ -65,6 +77,7 @@ K2_SHAPES = {"E": ((5, 200, 200, 200, 200, 8), 1400, 4), "B": (DIMS, ROWS, OUT)}
 # config A: 400 x 20 particles over 5 members, horizon 30, obs 17, act 6
 K1_BATCH, K1_HORIZON, K1_OBS, K1_ACT, K1_TILE = 8000, 30, 17, 6, 64
 K1_DIMS = (K1_OBS + K1_ACT, 200, 200, 200, 200, 2 * (K1_OBS + 1))
+K1_WIDE_DIMS = (K1_OBS + K1_ACT,) + WIDE_DIMS[1:]
 # K3: name -> (dims, rows a member): the main path's shapes (one row per
 # elite at CL-B, CL-A and DG), then the two-tile route's crossover (27 tiles a
 # member: 135 > 132 SMs), an odd tile count a member, and S = 64 and 65
@@ -127,8 +140,15 @@ def _bounds(out: int):
     return torch.full((1, out), 0.5, device=dev), torch.full((1, out), -10.0, device=dev)
 
 
-def k2_launch(dtype: torch.dtype, dims, rows: int, out: int):
-    """K2 at (dims, rows a member): a function that launches it once."""
+def _cluster_kw(cluster) -> dict:
+    """The wrappers' ``cluster`` argument, left out unless given (a checkout
+    from before the wide route's clusters has none)."""
+    return {} if cluster is None else {"cluster": cluster}
+
+
+def k2_launch(dtype: torch.dtype, dims, rows: int, out: int, cluster: int = None):
+    """K2 at (dims, rows a member): a function that launches it once (on the
+    wide route in clusters of ``cluster`` blocks if given)."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED)
@@ -136,16 +156,19 @@ def k2_launch(dtype: torch.dtype, dims, rows: int, out: int):
     x = torch.randn((MEMBERS, rows, dims[0]), generator=g).to("cuda")
     max_lv, min_lv = _bounds(out)
     tiles = K.pack_tiles(stack)
-    return lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, tiles=tiles)
+    kw = _cluster_kw(cluster)
+    return lambda: K.fused_ensemble_mlp_gaussian(g, x, stack, max_lv, min_lv, out, tiles=tiles,
+                                                 **kw)
 
 
-def k1_launch(dtype: torch.dtype):
-    """K1 at config A's shape: a function that launches it once."""
+def k1_launch(dtype: torch.dtype, dims=K1_DIMS, cluster: int = None):
+    """K1 at config A's shape (``dims`` its stack): a function that launches
+    it once (on the wide route in clusters of ``cluster`` blocks if given)."""
     from mbrl_tpu_torch.ops import kernels as K
 
     g = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda")
-    stack = _stack(dtype, K1_DIMS, g)
+    stack = _stack(dtype, dims, g)
     num_tiles = K1_BATCH // K1_TILE
     rot = (torch.arange(K1_HORIZON) * 7 % num_tiles).to(dev, torch.int32)
     obs0 = (0.1 * torch.randn((K1_BATCH, K1_OBS), generator=g)).to(dev)
@@ -154,7 +177,8 @@ def k1_launch(dtype: torch.dtype):
     max_lv, min_lv = _bounds(K1_OBS + 1)
     tiles = K.pack_tiles(stack)  # the chain's at these widths, whatever K1 keeps beside it
     args = (rot, obs0, acts, dmask, stack, max_lv, min_lv, K1_OBS + 1, K1_TILE)
-    return lambda: K.fused_rollout_returns(g, *args, tiles=tiles)
+    kw = _cluster_kw(cluster)
+    return lambda: K.fused_rollout_returns(g, *args, tiles=tiles, **kw)
 
 
 def k3_launch(dtype: torch.dtype, dims, rows: int, route: str = None):
@@ -223,9 +247,36 @@ def timeline_k1(dtype: torch.dtype, lib) -> dict:
             "last_step_us_since_its_start": _us(buf, names, 28)}
 
 
-def timeline_wide_k2(dtype: torch.dtype, lib) -> dict:
-    buf = _run(k2_launch(dtype, WIDE_DIMS, ROWS, OUT), lib.mbrl_timeline_wide)
-    return _us(buf, wide_marks(len(WIDE_DIMS) - 1), 0)
+def ring_period(us: dict, buf, layout) -> dict:
+    """The ring's pace in product 1 (a 512 x 512 product): its buffers, the
+    µs a buffer from its first chunk landed to its products done (the
+    consumers' marks), and the µs the producer waited there for a buffer to
+    be free (mark 29, a duration: in a cluster, for every consumer of every
+    block to release it)."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    buffers = sum(1 for i, _, _ in K.wide_ring(layout) if i == 1)
+    return {"p1_buffers": buffers,
+            "p1_us_per_buffer": round((us["p1_products"] - us["p1_landed"]) / buffers, 4),
+            "p1_producer_empty_wait_us": round(buf[PRODUCER + 29] / 1e3, 3)}
+
+
+def timeline_wide_k2(dtype: torch.dtype, lib, cluster: int) -> dict:
+    """K2's wide route at config B's shape in clusters of ``cluster``
+    blocks, block (0, 0): its marks from its start and the ring's period in
+    product 1 (``ring_period``). The kernel of each design has its own
+    reader: the clusters', the resident activations' (a bf16 stack at one
+    block a cluster) and the plain ring's."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    layout = K.WideTileLayout(WIDE_DIMS, dtype == torch.bfloat16)
+    design = "cluster" if cluster > 1 else "smem" if layout.resident else "plain"
+    reader = {"cluster": lib.mbrl_timeline_wide_cluster, "smem": lib.mbrl_timeline_wide_smem,
+              "plain": lib.mbrl_timeline_wide}[design]
+    buf = _run(k2_launch(dtype, WIDE_DIMS, ROWS, OUT, cluster), reader)
+    us = _us(buf, wide_marks(len(WIDE_DIMS) - 1), 0)
+    return {"cluster": cluster, "design": design, "us_since_start": us,
+            **ring_period(us, buf, layout)}
 
 
 def timeline_k3(dtype: torch.dtype, rows: int, lib, dims=DIMS) -> dict:
@@ -297,18 +348,33 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def launch_ms(repeats: int, routes: bool = False) -> dict:
-    """ms a launch of every chain kernel at the main path's shapes, each
-    ``repeats`` times (in turns over the kernels, so that drift spreads);
-    with ``routes``, K3 also on the routes it does not pick
-    (``K3_ROUTE_SHAPES``)."""
+def launch_ms(repeats: int, routes: bool = False, clusters: bool = False,
+              wide: bool = False) -> dict:
+    """ms a launch of every chain kernel at the main path's shapes and of
+    the wide route at 4x512 (``wide_launches``), each ``repeats`` times (in
+    turns over the kernels, so that drift spreads); with ``wide``, of the
+    wide route's alone; with ``routes``, K3 also on the routes it does not
+    pick (``K3_ROUTE_SHAPES``); with ``clusters``, K1's and K2's wide route
+    also in clusters of every other size the entries take. Also the SHA-256
+    of each launch's first output (the same seed in any checkout), so that
+    two trees' outputs can be compared bit for bit."""
     launches = {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for shape, (dims, rows, out) in K2_SHAPES.items():
-            launches[f"K2@{shape}/{name}"] = k2_launch(dtype, dims, rows, out)
-        launches[f"K1@A/{name}"] = k1_launch(dtype)
-        for shape, (dims, rows) in K3_SHAPES.items():
-            launches[f"K3@{shape}/{name}"] = k3_launch(dtype, dims, rows)
+        if not wide:
+            for shape, (dims, rows, out) in K2_SHAPES.items():
+                launches[f"K2@{shape}/{name}"] = k2_launch(dtype, dims, rows, out)
+            launches[f"K1@A/{name}"] = k1_launch(dtype)
+            for shape, (dims, rows) in K3_SHAPES.items():
+                launches[f"K3@{shape}/{name}"] = k3_launch(dtype, dims, rows)
+        for shape, launch in wide_launches(dtype).items():
+            launches[f"{shape}/{name}"] = launch
+        if clusters:  # the cluster sizes the wrappers do not pick
+            from mbrl_tpu_torch.ops import kernels as K
+
+            for cluster in K.WIDE_CLUSTERS:
+                if cluster != 1:
+                    for shape, launch in wide_launches(dtype, cluster).items():
+                        launches[f"{shape}/{name}/cluster{cluster}"] = launch
         if routes:  # the routes K3 does not pick at these shapes
             from mbrl_tpu_torch.ops import kernels as K
 
@@ -319,11 +385,50 @@ def launch_ms(repeats: int, routes: bool = False) -> dict:
                     picked = K.k3_route(rows, MEMBERS, sms, dtype == torch.bfloat16)
                     if route != picked and (route != "cluster" or rows <= K.MAX_TILE):
                         launches[f"K3@{shape}/{name}/{route}"] = k3_launch(dtype, dims, rows, route)
+    digests = {k: hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+               for k, fn in launches.items()}
     times = {k: [] for k in launches}
     for _ in range(repeats):
         for k, fn in launches.items():
             times[k].append(graph_ms(fn, 5 if k.startswith("K1") else 20))
-    return times
+    return times, digests
+
+
+def wide_launches(dtype: torch.dtype, cluster: int = None) -> dict:
+    """The wide route at 4x512: name -> a function that launches it once
+    through its wrapper: K2 at config B's shape, K1 at A's, K3 at C8k's and
+    C100k's; with ``cluster``, K2 and K1 alone, in clusters of that many
+    blocks."""
+    launches = {"K2wide@B/W512": k2_launch(dtype, WIDE_DIMS, ROWS, OUT, cluster),
+                "K1wide@A/W512": k1_launch(dtype, K1_WIDE_DIMS, cluster)}
+    if cluster is None:
+        launches["K3wide@C8k/W512"] = k3_launch(dtype, WIDE_DIMS, ROWS)
+        launches["K3wide@C100k/W512"] = k3_launch(dtype, (23,) + WIDE_DIMS[1:], LONG_ROWS)
+    return launches
+
+
+def cluster_occupancy() -> list:
+    """K2's and K1's wide kernels at 4x512, each dtype and cluster size the
+    entries take: the blocks of their grid at B's and A's shapes and the
+    clusters the card holds at once (``kernels.wide_max_active_clusters``)."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    g = torch.Generator().manual_seed(SEED)
+    dev = torch.device("cuda")
+    out = []
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for kernel, dims, tiles, members in (("K2wide@B/W512", WIDE_DIMS, -(-ROWS // K.MAX_TILE), MEMBERS),
+                                             ("K1wide@A/W512", K1_WIDE_DIMS, K1_BATCH // K1_TILE, 1)):
+            stack = _stack(dtype, dims, g)
+            for cluster in K.WIDE_CLUSTERS:
+                blocks = K.wide_grid(tiles, cluster) * members
+                held = K.wide_max_active_clusters(stack, kernel.startswith("K1"), cluster, dev,
+                                                  K1_OBS)
+                out.append({"kernel": f"{kernel}/{name}", "cluster": cluster,
+                            "picked": cluster == 1, "blocks": blocks,
+                            "clusters": blocks // cluster, "max_active_clusters": held,
+                            "one_wave": blocks // cluster <= held})
+    return out
 
 
 def main(argv=None) -> int:
@@ -333,6 +438,9 @@ def main(argv=None) -> int:
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--routes", action="store_true",
                         help="with --ms, time K3 on every route at K3_ROUTE_SHAPES")
+    parser.add_argument("--clusters", action="store_true",
+                        help="with --ms, time K1's and K2's wide route at every cluster size")
+    parser.add_argument("--wide", action="store_true", help="with --ms, the wide route alone")
     parser.add_argument("--k3", action="store_true", help="the phase tables of K3 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -346,13 +454,18 @@ def main(argv=None) -> int:
 
     if args.ms:
         build.build(verbose=True)  # ptxas' registers and spills of each kernel, to stderr
-        build.load_library()
+        lib = build.load_library()
+        if hasattr(lib, "mbrl_wide_max_active_clusters"):  # a checkout with clusters
+            print(json.dumps({"root": args.root or ".", "cluster_occupancy": cluster_occupancy()}),
+                  flush=True)
+        times, digests = launch_ms(args.repeats, args.routes, args.clusters, args.wide)
         print(json.dumps({"root": args.root or ".", "library": build.library_path().name,
-                          "ms": launch_ms(args.repeats, args.routes)}), flush=True)
+                          "ms": times, "output_sha256": digests}), flush=True)
         return 0
     build.EXTRA_FLAGS = ("-DTC_TIMELINE",)
     lib = build.load_library()
     for reader in ("mbrl_timeline", "mbrl_timeline_k3", "mbrl_timeline_wide",
+                   "mbrl_timeline_wide_cluster", "mbrl_timeline_wide_smem",
                    "mbrl_timeline_k3_wide"):
         getattr(lib, reader).argtypes = [ctypes.c_void_p]
     dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
@@ -369,9 +482,12 @@ def main(argv=None) -> int:
     for name, dtype in dtypes:
         print(json.dumps({"kernel": "K1", "shape": "A", "dtype": name, **timeline_k1(dtype, lib)}),
               flush=True)
+    from mbrl_tpu_torch.ops import kernels as K
+
     for name, dtype in dtypes:
-        print(json.dumps({"kernel": "K2 wide", "dtype": name, "dims": list(WIDE_DIMS),
-                          "us_since_start": timeline_wide_k2(dtype, lib)}), flush=True)
+        for cluster in (1, K.WIDE_CLUSTER):
+            print(json.dumps({"kernel": "K2 wide", "dtype": name, "dims": list(WIDE_DIMS),
+                              **timeline_wide_k2(dtype, lib, cluster)}), flush=True)
     for rows, dims in ((ROWS, WIDE_DIMS), (LONG_ROWS, (23,) + WIDE_DIMS[1:])):
         for name, dtype in dtypes:
             print(json.dumps({"kernel": "K3 wide", "dtype": name,

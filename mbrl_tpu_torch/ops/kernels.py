@@ -36,7 +36,11 @@ per call either way. The wide route runs on the tensor cores too (K1 and K2
 in ``csrc/wide_tc.cu``, K3 in ``csrc/ensemble_mlp_wide.cu``, all on
 ``csrc/wide_tc.cuh``), on weights packed by :func:`pack_wide`
 (:class:`WideTileLayout`: the chain's layout in passes of ``WIDE_PASS``
-columns) with the activations streamed from a per-block scratch. On the
+columns) with the activations streamed from a per-block scratch. There K1
+and K2 keep a bf16 stack's activations in shared memory where they fit
+(``WideTileLayout.resident``), and on request run in clusters of blocks that
+fetch each weight chunk once (:func:`wide_grid`, :func:`chunk_issuer`,
+:func:`k1_shared`). On the
 chain K3 takes one of three routes by shape (:func:`k3_route`): one tile a
 block in one wave, two tiles a block past it, a cluster of blocks a member
 at a few rows a member.
@@ -89,6 +93,18 @@ TC_SMEM_BYTES = 232_448
 TC_HEAD_SPLIT = 40
 # output columns of one pass of the wide tensor-core route (csrc/wide_tc.cuh)
 WIDE_PASS = 256
+# K1's and K2's blocks on the wide route may go in clusters along x
+# (csrc/wide_cluster.cu), whose blocks run row tiles of one member and fetch
+# each weight chunk once for all of them: the sizes the entries take (4
+# would need a second wave at config B's shape), and the cluster route's.
+# The wrappers take one block a cluster unless asked: at config B's and A's
+# shapes on an H100 80GB HBM3 (700 W) the 2-block clusters were slower than
+# the plain ring in f32 and than the resident activations in bf16.
+WIDE_CLUSTERS = (1, 2)
+WIDE_CLUSTER = 2
+# ring buffers that the wide route's resident-activation plan (bf16,
+# csrc/wide_smem.cu) needs beside its two activation buffers
+WIDE_SMEM_MIN_STAGES = 3
 # K3's routes on the chain (csrc/ensemble_mlp.cu, in the entry's numbering):
 # one tile a block, two tiles a block, a cluster of blocks a member; the
 # two-tile route's ring buffers at most and A bytes a k-step of a warpgroup;
@@ -319,6 +335,25 @@ class WideTileLayout(ChainLayout):
         obs carry lives in the scratch, so ``extra_bytes`` does not count)."""
         return min(TC_MAX_STAGES, (TC_SMEM_BYTES - 128) // self.stage_bytes)
 
+    @functools.cached_property
+    def smem_stages(self) -> int:
+        """Ring buffers of the resident-activation plan (``make_smem_desc``):
+        weight chunks only, beside the barriers and two resident activation
+        buffers of ``a_buf_bytes``; 0 for an f32 stack (its hi/lo buffers do
+        not fit)."""
+        if not self.low_precision:
+            return 0
+        weights = self.stage_bytes - MAX_TILE * self.chunk * self.esize * self.copies
+        return max(0, min(TC_MAX_STAGES, (TC_SMEM_BYTES - 128 - 2 * self.a_buf_bytes) // weights))
+
+    @property
+    def resident(self) -> bool:
+        """Whether K1 and K2 keep this stack's activations in shared memory
+        (a bf16 stack whose two activation buffers leave room for
+        ``WIDE_SMEM_MIN_STAGES`` weight chunks: at most 512 columns), where
+        the other wide stacks stream them from the scratch."""
+        return self.smem_stages >= WIDE_SMEM_MIN_STAGES
+
 
 def rna_tf32(x: torch.Tensor) -> torch.Tensor:
     """f32 rounded to tf32 (10 mantissa bits), to nearest with ties away from
@@ -498,6 +533,58 @@ def k3_blocks(route: str, rows_per_member: int, num_members: int, num_sms: int) 
     if route == "pair":
         return pair_blocks(rows_per_member, num_members, num_sms)
     return persistent_blocks(rows_per_member, num_members, num_sms)
+
+
+def wide_grid(num_tiles: int, cluster: int) -> int:
+    """The wide route's blocks along x for ``num_tiles`` row tiles (K2's of a
+    member, K1's of the batch): padded to a multiple of ``cluster``; a
+    padded block runs a zero tile for its share of the weight stream and
+    writes nothing."""
+    if cluster not in WIDE_CLUSTERS:
+        raise ValueError(f"cluster {cluster} is not one of {WIDE_CLUSTERS}")
+    return -(-num_tiles // cluster) * cluster
+
+
+def wide_ring(layout: "WideTileLayout") -> List[Tuple[int, int, int]]:
+    """The ring buffers of one chain on the wide route, in the order the
+    producer fills them (``produce_wide``): (product, first column of the
+    pass, first K row of the chunk)."""
+    return [(i, p0, k0) for i in range(len(layout.dims) - 1) for p0, _ in layout.passes(i)
+            for k0 in range(0, layout.k_pad[i], layout.chunk)]
+
+
+def chunk_issuer(it: int, share: int) -> int:
+    """The rank of the block that fetches ring buffer ``it``'s weight chunk
+    for the first ``share`` blocks of its cluster (multicast into each); with
+    ``share`` 1 every block fetches its own."""
+    return it % share
+
+
+def k1_member(tile: int, rot: int, num_tiles: int, tiles_per_member: int, cluster: int) -> int:
+    """K1's member for row tile ``tile`` at a step of rotation ``rot``; a
+    padded tile (``tile >= num_tiles``) takes its cluster's first tile's
+    (``k1_member`` in ``csrc/wide_tc.cu``)."""
+    if tile >= num_tiles:
+        tile -= tile % cluster
+    return ((tile + rot) % num_tiles) // tiles_per_member
+
+
+def k1_shared(first: int, cluster: int, rot: int, num_tiles: int, tiles_per_member: int) -> bool:
+    """Whether the tiles of K1's cluster from ``first`` use one member at a
+    step of rotation ``rot`` and so share its weight stream (else each block
+    copies its own)."""
+    members = {k1_member(first + q, rot, num_tiles, tiles_per_member, cluster)
+               for q in range(cluster)}
+    return len(members) == 1
+
+
+def k1_straddles(rot: Sequence[int], num_tiles: int, tiles_per_member: int,
+                 cluster: int) -> List[List[int]]:
+    """For each of K1's clusters, the steps at which its tiles straddle two
+    members under the rotations ``rot`` (one a step)."""
+    return [[t for t, r in enumerate(rot)
+             if not k1_shared(first, cluster, int(r), num_tiles, tiles_per_member)]
+            for first in range(0, wide_grid(num_tiles, cluster), cluster)]
 
 
 def pick_tile(rows_per_member: int, max_tile: int = MAX_TILE, min_tile: int = 8) -> Optional[int]:
@@ -736,6 +823,22 @@ def _wide_scratch(layout: WideTileLayout, device: torch.device, blocks: int,
     return torch.empty(blocks * layout.block_bytes(carry_dim), dtype=torch.uint8, device=device)
 
 
+def wide_max_active_clusters(stack: MLPStack, k1: bool, cluster: int, device: torch.device,
+                             obs_dim: int = 0) -> int:
+    """The clusters of ``cluster`` blocks of K1's (``k1``) or K2's wide kernel
+    for ``stack`` that the card holds at once (``cudaOccupancyMaxActiveClusters``):
+    a grid of more blocks than ``cluster`` times this runs in a second wave."""
+    from mbrl_tpu_torch.ops.build import load_library
+
+    count = ctypes.c_int(0)
+    code = load_library().mbrl_wide_max_active_clusters(
+        int(k1), _dims_arg(stack), stack.num_products, obs_dim + 1 if k1 else 0,
+        ACTIVATION_CODES[stack.activation], int(stack.low_precision), cluster,
+        ctypes.byref(count))
+    _raise_on_error(code, "wide_max_active_clusters")
+    return count.value
+
+
 def fused_ensemble_mlp(
     x: torch.Tensor, stack: MLPStack, tiles: Optional[ChainTiles] = None
 ) -> torch.Tensor:
@@ -787,13 +890,15 @@ def fused_ensemble_mlp_gaussian(
     out_size: int,
     sample: bool = True,
     tiles: Optional[ChainTiles] = None,
+    cluster: int = 1,
 ) -> torch.Tensor:
     """K2: one rollout step, (E, S, in) → (E, S, out_size): a draw from the
     bounded Gaussian head (two seed words from ``generator`` key the kernel's
     Philox), or the head's mean when ``sample=False``. ``tiles`` is
     ``pack_tiles(stack, k2_extra_bytes(out_size))`` (the chain's or the wide
     route's), packed here when not given (pack once per rollout or model
-    state)."""
+    state). ``cluster``: the blocks of a cluster on the wide route, one of
+    ``WIDE_CLUSTERS``."""
     if not _dispatch(x):
         return fused_ensemble_mlp_gaussian_plain(
             generator, x, stack, max_logvar, min_logvar, out_size, sample
@@ -820,10 +925,10 @@ def fused_ensemble_mlp_gaussian(
     if not isinstance(tiles.layout, WideTileLayout):
         code = lib.mbrl_ensemble_mlp_gaussian(*head, *tail, _stream(x.device))
     else:
-        scratch = _wide_scratch(tiles.layout, x.device, -(-rows // MAX_TILE) * e)
+        scratch = _wide_scratch(tiles.layout, x.device, wide_grid(-(-rows // MAX_TILE), cluster) * e)
         code = lib.mbrl_ensemble_mlp_gaussian_wide(
-            *head, _device_dims(stack.dims, x.device).data_ptr(), *tail, scratch.data_ptr(),
-            scratch.numel(), _stream(x.device),
+            *head, _device_dims(stack.dims, x.device).data_ptr(), *tail, cluster,
+            scratch.data_ptr(), scratch.numel(), _stream(x.device),
         )
     _raise_on_error(code, "fused_ensemble_mlp_gaussian")
     fused_ensemble_mlp_gaussian.launches += 1
@@ -843,6 +948,7 @@ def fused_rollout_returns(
     tile: int,
     sample: bool = True,
     tiles: Optional[ChainTiles] = None,
+    cluster: int = 1,
 ) -> torch.Tensor:
     """K1: whole-horizon imagined rollout, per-row total learned reward (B, 1).
 
@@ -851,7 +957,8 @@ def fused_rollout_returns(
     Requires D == out_size - 1, tile <= 64 dividing B into a multiple of E tiles.
     ``tiles`` is ``pack_tiles(stack, k1_extra_bytes(D, out_size))`` (the
     chain's or the wide route's; K1's obs carry and normals count for the
-    chain), packed here when not given.
+    chain), packed here when not given. ``cluster``: the blocks of a cluster
+    on the wide route, one of ``WIDE_CLUSTERS``.
     """
     if not _dispatch(obs0_rows):
         return fused_rollout_returns_plain(
@@ -893,9 +1000,10 @@ def fused_rollout_returns(
     if not isinstance(tiles.layout, WideTileLayout):
         code = lib.mbrl_rollout_returns(*head, *tail, _stream(dev))
     else:
-        scratch = _wide_scratch(tiles.layout, dev, batch // tile, carry_dim=obs_dim)
+        scratch = _wide_scratch(tiles.layout, dev, wide_grid(batch // tile, cluster),
+                                carry_dim=obs_dim)
         code = lib.mbrl_rollout_returns_wide(
-            *head, _device_dims(stack.dims, dev).data_ptr(), *tail, scratch.data_ptr(),
+            *head, _device_dims(stack.dims, dev).data_ptr(), *tail, cluster, scratch.data_ptr(),
             scratch.numel(), _stream(dev),
         )
     _raise_on_error(code, "fused_rollout_returns")
