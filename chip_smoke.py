@@ -8,16 +8,18 @@
 Builds the CUDA kernels from ``mbrl_tpu_torch/csrc/`` (one nvcc per source, all
 at once): K1, K2 and K3 on the tensor-core chain (``tc_chain.cu``,
 ``ensemble_mlp.cu``) and on the wide route, on the tensor cores too (K1 and K2
-in ``wide_tc.cu``, K3's ``ensemble_mlp_wide_tc_kernel`` in
-``ensemble_mlp_wide.cu``). Holds each against its
+in ``wide_tc.cu``; K3's ``ensemble_mlp_wide_smem_kernel`` in
+``ensemble_mlp_wide_smem.cu`` up to 512 columns, ``ensemble_mlp_wide_tc_kernel``
+in ``ensemble_mlp_wide.cu`` beyond). Holds each against its
 plain PyTorch version at the main paths' shapes (f32 and bf16; K3 at 8,000
 rows with a Gaussian and with a deterministic head, at 100,000 rows and at
 config M's 80,000 on its two-tile route, at one row a member on its cluster
 route, and on each side of the routes' limits: 64 and 65 rows a member and
 1,700, an odd 27 tiles a member; K2, mean path and samples, at the shapes of configs B and
 E, of MPPI and of each of iCEM's populations; every activation at 200 and 300
-columns; widths 256 to 1024 and a 12-product chain; the wide route timed at
-512 columns, K3 there at 8,000 and 100,000 rows) and times both, then drives
+columns; widths 256 to 1024 and a 12-product chain, K3 also past one wave at
+264, 300 and 512; the wide route timed at 512 columns, K3 there at 8,000 and
+100,000 rows, and at 1,024 columns) and times both, then drives
 the port's entry points at full width (7-member GaussianMLP ensemble, 5
 elites, 4x200 silu; CEM pop 400 x 20 particles x horizon 30, 5 iterations)
 with random weights from a seed:
@@ -41,7 +43,10 @@ with random weights from a seed:
   on E's trained model) and ``act_batch`` (4 environments, config B): K2
   W  a 512-wide model: two ``act``s of A (K1) and of B (K2), the first on a
      fresh agent, and ``GaussianMLP._forward_sharded`` (K3) against the CPU, all
-     on the wide route; then a warm ``act`` of B under the profiler
+     on the wide route; ``_forward_sharded`` of a 512-wide model with A's widths
+     on C's 100,000 rows (past one wave) and of a 1,024-wide one on 8,000 rows
+     (K3's scratch route), each against its plain version on the card; then a
+     warm ``act`` of B under the profiler
   P  the propagation methods besides random_model, card against CPU:
      ``fixed_model`` with its persistent indices (K3) and on a batch the elites
      do not shard, ``expectation``, and the single-model ``gaussian_mlp.yaml``
@@ -161,6 +166,11 @@ T_ROWS = 10_000
 SWEEP_WIDTHS = (256, 264, 300, 512, 1024)
 DEEP_PRODUCTS = 12
 WIDE_HID = 512
+# the sweep's K3 past one wave on its resident wide route: 2,017 rows a member
+# (32 tiles, the last of one row; 160 tiles on 132 SMs) at these widths
+SWEEP_PAST_WAVE, SWEEP_PAST_WAVE_ROWS = (264, 300, 512), 2_017
+# the widest sweep width, which K3 runs on its scratch wide route
+WIDEST_HID = 1024
 # published H100 SXM peaks (dense): TF32 and bf16 tensor cores, HBM3
 PEAK_TF32, PEAK_BF16, PEAK_BYTES = 495e12, 989e12, 3.35e12
 # elementwise tolerances (|kernel - plain| <= atol + rtol * |plain|):
@@ -293,7 +303,8 @@ def check_k3(K, x, stack, dt_name: str, what: str):
     bms, bby = bound(flops, nbytes, stack.low_precision)
     sms = K.sm_count(x.device)
     if isinstance(tiles.layout, K.WideTileLayout):
-        route, blocks = "wide", K.persistent_blocks(rows, e, sms)
+        route = "wide/smem" if tiles.layout.k3_resident else "wide/scratch"
+        blocks = K.persistent_blocks(rows, e, sms)
     else:
         route = K.k3_route(rows, e, sms, stack.low_precision)
         blocks = K.k3_blocks(route, rows, e, sms)
@@ -560,7 +571,9 @@ def width_sweep(device: str = "cuda"):
     of ``SWEEP_WIDTHS`` (two hidden layers: 256 is the chain's widest, the
     others take the wide route) and through a ``DEEP_PRODUCTS``-product chain
     64 wide (the wide route), f32 and bf16: K3 and K2 on ragged rows (100 a
-    member), K1 over 3 steps of 640 rows. Checks the route each took, and the
+    member), K3 also past one wave (``SWEEP_PAST_WAVE_ROWS`` a member) at
+    ``SWEEP_PAST_WAVE``, K1 over 3 steps of 640 rows. Checks the route each
+    took (K3's wide one: resident up to 512 columns, 1,024 on the scratch), and the
     samples: K2's draws about its mean must be N(0, 1), and K1's sampled
     returns must agree with the plain version's within standard error, row
     by row over 16 launches each."""
@@ -606,6 +619,18 @@ def width_sweep(device: str = "cuda"):
                     else:
                         got = K.fused_ensemble_mlp(x, stack)
                         ref = K.fused_ensemble_mlp_plain(x, stack)
+                        if not chain:  # K3's wide route by shape: resident up to 512 columns
+                            resident = K.WideTileLayout(dims, dtype == torch.bfloat16).k3_resident
+                            check(resident == (width != 1024),
+                                  f"K3 {dt_name} at width {width}: resident route {resident}")
+                        if width in SWEEP_PAST_WAVE:
+                            # past one wave, a ragged last tile of one row a member
+                            xs = torch.randn((ELITES, SWEEP_PAST_WAVE_ROWS, in_size), generator=g).to(dev)
+                            err, ok = max_err(K.fused_ensemble_mlp(xs, stack),
+                                              K.fused_ensemble_mlp_plain(xs, stack), TOL[(name, dt_name)])
+                            check(ok, f"K3 {dt_name} at width {width}, {SWEEP_PAST_WAVE_ROWS} rows a "
+                                      f"member: max abs err {err}")
+                            errs[f"K3/{dt_name}/{width}/{SWEEP_PAST_WAVE_ROWS}"] = err
                 what = f"{name} {dt_name} at width {width} ({len(dims) - 1} products)"
                 err, ok = max_err(got, ref, TOL[(name, dt_name)])
                 check(ok, f"{what} disagrees with its plain version: max abs err {err}")
@@ -652,8 +677,9 @@ def wide_kernel_checks():
     """K3, K2 and K1 on the wide route at ``WIDE_HID`` columns: the shapes of
     K3 ``C8k`` and ``C100k``, K2 ``B`` and K1 ``A`` with a 4 x ``WIDE_HID``
     model (the port's init, 5 elites), f32 and bf16, checked and timed as
-    ``kernel_checks`` does, on the route each wrapper picks (bf16 K1 and K2:
-    the activations resident in shared memory); then K2 and K1 in clusters of
+    ``kernel_checks`` does, on the route each wrapper picks (K3, and bf16 K1
+    and K2: the activations resident in shared memory); K3 at ``C8k`` with a
+    4 x ``WIDEST_HID`` model on its scratch route; then K2 and K1 in clusters of
     ``kernels.WIDE_CLUSTER`` blocks that share each weight chunk, checked and
     timed alike, their clusters in one wave."""
     from mbrl_tpu_torch.ops import kernels as K
@@ -679,6 +705,11 @@ def wide_kernel_checks():
         results[("K3@W512C100k", dt_name)] = check_k3(K, x, stack, dt_name,
                                                       f"{WIDE_HID} wide, C100k")
         del x
+        # K3 at C's 8,000 rows with a 4 x WIDEST_HID model: its scratch route
+        wider, _, _ = elite_stack(OBS_B + ACT, OBS_B, dtype, g, hid=WIDEST_HID)
+        x = torch.randn((ELITES, BATCH // ELITES, OBS_B + ACT), generator=g).to(dev)
+        results[("K3@W1024", dt_name)] = check_k3(K, x, wider, dt_name, f"{WIDEST_HID} wide")
+        del x, wider
         results[("K1@W512", dt_name)] = check_k1(K, g, stack, max_lv, min_lv, dt_name,
                                                  f"{WIDE_HID} wide")
         results[("K1@W512/cluster", dt_name)] = {
@@ -793,14 +824,19 @@ def plan_config(name: str, device: str = "cuda", hid: int = HID, acts: int = 3):
 
 # the CUDA kernels of K1, K2 and K3: on the chain, then on the wide route,
 # then K3's two other chain routes (kernels.k3_route: two tiles a block, a
-# cluster a member)
+# cluster a member) and its resident wide route
 PORT_KERNELS = ("rollout_returns_tc_kernel", "gaussian_tc_kernel", "ensemble_mlp_tc_kernel",
                 "rollout_returns_wide_tc_kernel", "gaussian_wide_tc_kernel",
                 "ensemble_mlp_wide_tc_kernel", "ensemble_mlp_pair_kernel",
-                "ensemble_mlp_cluster_kernel")
-# K3's kernel on each of its routes (check_k3's "route")
+                "ensemble_mlp_cluster_kernel", "ensemble_mlp_wide_smem_kernel")
+# K3's kernel on each of its routes (check_k3's "route") and its source
 K3_KERNELS = {"tile": "ensemble_mlp_tc_kernel", "pair": "ensemble_mlp_pair_kernel",
-              "cluster": "ensemble_mlp_cluster_kernel", "wide": "ensemble_mlp_wide_tc_kernel"}
+              "cluster": "ensemble_mlp_cluster_kernel", "wide/scratch": "ensemble_mlp_wide_tc_kernel",
+              "wide/smem": "ensemble_mlp_wide_smem_kernel"}
+K3_SOURCES = {"tile": "mbrl_tpu_torch/csrc/ensemble_mlp.cu", "pair": "mbrl_tpu_torch/csrc/ensemble_mlp.cu",
+              "cluster": "mbrl_tpu_torch/csrc/ensemble_mlp.cu",
+              "wide/scratch": "mbrl_tpu_torch/csrc/ensemble_mlp_wide.cu",
+              "wide/smem": "mbrl_tpu_torch/csrc/ensemble_mlp_wide_smem.cu"}
 
 
 def device_busy(name: str, acts: int = 2, hid: int = HID):
@@ -1349,38 +1385,69 @@ def wide_paths(device: str = "cuda"):
     """A ``WIDE_HID``-wide model through the entry points: two ``act``s of
     config A (K1) and of config B (K2), the first of each on a fresh agent
     (it packs the model), and ``GaussianMLP._forward_sharded`` (one K3
-    launch, on the model's wide tiles) on the card against the same model on
-    the CPU."""
+    launch each, on the model's wide tiles): on C's 8,000 rows against the
+    same model on the CPU; on C's 100,000 rows with A's model widths (in 23),
+    past one wave, and on 8,000 rows with a ``WIDEST_HID``-wide model (K3's
+    scratch route), each against the plain version on the same device."""
     from mbrl_tpu_torch.models import GaussianMLP
     from mbrl_tpu_torch.ops import kernels as K
 
     out = {"act_ms_A": plan_config("A", device, hid=WIDE_HID, acts=2),
            "act_ms_B": plan_config("B", device, hid=WIDE_HID, acts=2)}
-    vals = {}
-    rows = BATCH
-    x = torch.randn((rows, OBS_B + ACT), generator=torch.Generator().manual_seed(SEED + 12))
-    perm = torch.randperm(rows, generator=torch.Generator().manual_seed(SEED + 13))
-    for dev in (device, "cpu"):
-        model = GaussianMLP(OBS_B + ACT, OBS_B, LAYERS, ENSEMBLE, WIDE_HID, activation="silu",
+
+    def sharded(in_size, out_size, hid, rows, dev, seed, resident, with_plain=True):
+        """_forward_sharded of a hid-wide model on rows random rows: (mean,
+        logvar), the same with K3's plain version (if ``with_plain``), and the
+        K3 launches it made."""
+        x = torch.randn((rows, in_size), generator=torch.Generator().manual_seed(seed))
+        perm = torch.randperm(rows, generator=torch.Generator().manual_seed(seed + 1))
+        model = GaussianMLP(in_size, out_size, LAYERS, ENSEMBLE, hid, activation="silu",
                             propagation_method="random_model", device=dev)
-        params = model.set_elite(model.init(torch.Generator().manual_seed(SEED + 14)),
+        params = model.set_elite(model.init(torch.Generator().manual_seed(seed + 2)),
                                  list(range(ELITES)))
         packed = model.packed(params)
-        check(not K.takes_chain(packed.stack.dims, False), "a 512-wide model took the chain")
-        check(dev == "cpu" or isinstance(packed.tiles.layout, K.WideTileLayout),
-              "a 512-wide model was not packed for the wide route")
+        check(not K.takes_chain(packed.stack.dims, False), f"a {hid}-wide model took the chain")
+        check(dev == "cpu" or (isinstance(packed.tiles.layout, K.WideTileLayout)
+                               and packed.tiles.layout.k3_resident == resident),
+              f"a {hid}-wide model was not packed for K3's {'resident' if resident else 'scratch'} "
+              "wide route")
         before = K.fused_ensemble_mlp.launches
-        mean, logvar = model._forward_sharded(params, x.to(dev), perm.to(dev))
-        want = 1 if dev == "cuda" else 0
-        check(K.fused_ensemble_mlp.launches - before == want,
-              f"_forward_sharded at {WIDE_HID} columns on {dev}: "
-              f"{K.fused_ensemble_mlp.launches - before} K3 launches, not {want}")
-        vals[dev] = (mean.float().cpu(), logvar.float().cpu())
+        got = model._forward_sharded(params, x.to(dev), perm.to(dev))
+        launches = K.fused_ensemble_mlp.launches - before
+        if not with_plain:
+            return got, None, launches
+        kernel = K.fused_ensemble_mlp
+        K.fused_ensemble_mlp = lambda h, stack, tiles=None: K.fused_ensemble_mlp_plain(h, stack)
+        try:  # the same call with K3's plain version in its place
+            plain = model._forward_sharded(params, x.to(dev), perm.to(dev))
+        finally:
+            K.fused_ensemble_mlp = kernel
+        return got, plain, launches
+
     tol = TOL[("K3", "f32")]
+    vals, launches = {}, {}
+    for dev in (device, "cpu"):
+        got, _, launches[dev] = sharded(OBS_B + ACT, OBS_B, WIDE_HID, BATCH, dev, SEED + 12, True,
+                                        with_plain=False)
+        vals[dev] = tuple(v.float().cpu() for v in got)
     err = max(max_err(a, b, tol)[0] for a, b in zip(vals[device], vals["cpu"]))
     check(all(max_err(a, b, tol)[1] for a, b in zip(vals[device], vals["cpu"])),
           f"_forward_sharded at {WIDE_HID} columns: card vs CPU max abs err {err} (tol {tol})")
     out["forward_sharded_max_abs_err"] = err
+    runs = {f"C100k@W{WIDE_HID}": (OBS_A + ACT, OBS_A + 1, WIDE_HID, MBPO_ROWS, True),
+            f"C8k@W{WIDEST_HID}": (OBS_B + ACT, OBS_B, WIDEST_HID, BATCH, False)}
+    for name, (in_size, out_size, hid, rows, resident) in runs.items():
+        got, plain, launches[name] = sharded(in_size, out_size, hid, rows, device, SEED + 15,
+                                             resident)
+        errs = [max_err(a, b, tol) for a, b in zip(got, plain)]
+        check(all(ok for _, ok in errs), f"_forward_sharded {name}: kernel vs plain version max "
+                                         f"abs err {max(e for e, _ in errs)} (tol {tol})")
+        out[f"forward_sharded_{name}_max_abs_err"] = max(e for e, _ in errs)
+    on_card = int(device == "cuda")
+    want = {device: on_card, "cpu": 0, **{name: on_card for name in runs}}
+    check(launches == want, f"_forward_sharded: K3 launches {launches}, not {want}")
+    out["forward_sharded_launches"] = {f"C8k@W{WIDE_HID}": launches[device],
+                                       **{name: launches[name] for name in runs}}
     return out
 
 
@@ -3302,11 +3369,12 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
           f"act_batch: expected launches {only_k2(3 * 4 * 5 * HORIZON)}, got {counts_batch}")
 
     # the wide route on the entry points: two acts of A (5 K1 each) and of B
-    # (150 K2 each), one _forward_sharded (K3); then a warm act of B under the
+    # (150 K2 each), three _forward_sharded (one K3 each: 8,000 and 100,000
+    # rows at 512 wide, 8,000 at 1,024); then a warm act of B under the
     # profiler
     wide, counts_w = counted(wide_paths)
     print(f"{WIDE_HID}-wide model: " + json.dumps(wide) + f"  launches {counts_w}", flush=True)
-    want_w = {"fused_rollout_returns": 2 * 5, k2: 2 * 5 * HORIZON, "fused_ensemble_mlp": 1}
+    want_w = {"fused_rollout_returns": 2 * 5, k2: 2 * 5 * HORIZON, "fused_ensemble_mlp": 3}
     check(counts_w == want_w, f"{WIDE_HID}-wide model: expected launches {want_w}, got {counts_w}")
     print(f"device profile, config B at {WIDE_HID} wide: "
           + json.dumps(device_busy("B", acts=1, hid=WIDE_HID)), flush=True)
@@ -3465,6 +3533,7 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
              "K3": "mbrl_tpu_torch/csrc/ensemble_mlp.cu"}
     wide_src = {"K1": "mbrl_tpu_torch/csrc/wide_tc.cu", "K2": "mbrl_tpu_torch/csrc/wide_tc.cu",
                 "K3": "mbrl_tpu_torch/csrc/ensemble_mlp_wide.cu"}
+    wide_k3 = wide["forward_sharded_launches"]  # W's K3 launches, call by call
     rows = {  # row: (wrapper, the main path's dtype, its launches there, source)
         "K1": ("fused_rollout_returns", "bf16", counts_a["fused_rollout_returns"], chain["K1"]),
         "K2": (k2, "f32", counts_b[k2], chain["K2"]),
@@ -3481,7 +3550,9 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
         "K3@CL-B": (k3, "f32", counts_cl["B"][k3], chain["K3"]),
         "K1@W512": ("fused_rollout_returns", "bf16", counts_w["fused_rollout_returns"], wide_src["K1"]),
         "K2@W512": (k2, "f32", counts_w[k2], wide_src["K2"]),
-        "K3@W512": (k3, "f32", counts_w[k3], wide_src["K3"]),
+        "K3@W512": (k3, "f32", wide_k3[f"C8k@W{WIDE_HID}"], wide_src["K3"]),
+        "K3@W512C100k": (k3, "f32", wide_k3[f"C100k@W{WIDE_HID}"], wide_src["K3"]),
+        "K3@W1024": (k3, "f32", wide_k3[f"C8k@W{WIDEST_HID}"], wide_src["K3"]),
         "K2@DG": (k2, "f32", counts_dg[k2], chain["K2"]),
         "K3@DG": (k3, "f32", counts_dg[k3], chain["K3"]),
         "K2@TUT": (k2, "f32", counts_tut[k2], chain["K2"]),
@@ -3503,6 +3574,8 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
         other = "f32" if dtype == "bf16" else "bf16"
         base = k.split("@")[0]
         route_kernels = PORT_KERNELS[3:6] if src in wide_src.values() else PORT_KERNELS[:3]
+        if base == "K3":  # the source of the route it took
+            src = K3_SOURCES[r["route"]]
         line.append({
             "name": f"{wrapper} ({k}, {dtype})",
             "kernel": (K3_KERNELS[r["route"]] if base == "K3"

@@ -1,16 +1,22 @@
 // The wide route of the equal-shard ensemble forward K3 on Hopper's tensor
-// cores (sm_90a), written by hand.
+// cores (sm_90a), written by hand: the entry mbrl_ensemble_mlp_wide and the
+// scratch route's kernel ensemble_mlp_wide_tc_kernel.
 //
 // Replaces the Pallas TPU kernel fused_ensemble_mlp / _kernel of
 // mbrl_tpu/ops/pallas_kernels.py (member m runs its own MLP chain over its own
 // contiguous shard of rows; the head comes out raw), as the chain's K3
 // (ensemble_mlp.cu) does, for every stack the chain does not take
 // (kernels.takes_chain: a layer wider than 256 columns, more than
-// MAX_PRODUCTS products, or no room for the chain's ring). Widest layer and
-// deepest chain it takes: any. It is the step of ModelEnv.step ->
-// GaussianMLP._forward_sharded and of the deterministic-head rollout for a
-// wide model, at anything from a planner's 8,000 rows to a policy-training
-// rollout's 100,000.
+// MAX_PRODUCTS products, or no room for the chain's ring). Two routes, picked
+// by shape (ops/kernels.py: WideTileLayout.k3_resident mirrors the choice,
+// the entry checks the route it is given): where make_wide_smem_desc's plan
+// fits (every padded layer at most 512 columns) the resident route,
+// ensemble_mlp_wide_smem_kernel (ensemble_mlp_wide_smem.cu: a tile's
+// activations in shared memory, one pass a product); for any wider stack the
+// scratch route below, which takes any width and depth. It is the step of
+// ModelEnv.step -> GaussianMLP._forward_sharded and of the
+// deterministic-head rollout for a wide model, at anything from a planner's
+// 8,000 rows to a policy-training rollout's 100,000.
 //
 // What bounds it: operations, the products at the tensor peak (bf16 989
 // TFLOP/s; an f32 stack as 3xTF32, three tf32 products at 495). At 4 x 512 a
@@ -18,8 +24,8 @@
 // member's stack (1.6 MB bf16, 6.5 MB as tf32 hi/lo pairs) is read from L2
 // by every tile.
 //
-// Design: K1's and K2's wide products (wide_tc.cuh) under the chain K3's
-// persistent tile loop (ensemble_mlp.cu).
+// The scratch route's design: K1's and K2's wide products (wide_tc.cuh)
+// under the chain K3's persistent tile loop (ensemble_mlp.cu).
 // - produce_wide() on the producer warp and consume_wide() on two consumer
 //   warpgroups: weights pre-packed by pack_wide (WideTileLayout) in wgmma's
 //   layout, landed by bulk copies through the mbarrier ring beside the
@@ -58,6 +64,9 @@
 // after its launch.
 
 #include "wide_tc.cuh"
+
+#define K3W_SCRATCH 0  // the entry's routes, in the order of kernels.K3_WIDE_ROUTES
+#define K3W_SMEM 1
 
 #ifdef TC_TIMELINE
 // Marks of block 0: 0 start, 1 barriers set up; then, of the last tile it
@@ -133,27 +142,34 @@ extern "C" {
 // layout and the scratch) and `dims_dev`, the same ints in device memory (read
 // by the kernel). `tiles` is pack_wide()'s weight tensor with `tile_elems`
 // elements per member, checked against this side's layout; `blocks` is the
-// grid (persistent_blocks() in ops/kernels.py); `scratch` holds
-// `scratch_bytes`, at least blocks x block_bytes
-// (ops/kernels.py:WideTileLayout.block_bytes).
+// grid (persistent_blocks() in ops/kernels.py). `route` is K3W_SCRATCH or
+// K3W_SMEM (kernels.K3_WIDE_ROUTES), refused where its plan does not take the
+// stack. The scratch route's `scratch` holds `scratch_bytes`, at least blocks
+// x block_bytes (ops/kernels.py:WideTileLayout.block_bytes); the resident
+// route takes none.
 int mbrl_ensemble_mlp_wide(const float* x, const void* tiles, const float* bs, float* out,
                            const int* dims, const int* dims_dev, int num_products,
                            int num_members, int rows, int blocks, int act, int bf16,
-                           long long tile_elems, void* scratch, long long scratch_bytes,
+                           long long tile_elems, void* scratch, long long scratch_bytes, int route,
                            void* stream) {
   WideDesc d;
   size_t smem;
-  if (!make_wide_desc(bf16, dims, num_products, 0, &d, &smem) || rows < 1 || num_members < 1 ||
-      d.w_member != tile_elems)
+  const bool planned = route == K3W_SMEM ? make_wide_smem_desc(bf16, dims, num_products, &d, &smem)
+                       : route == K3W_SCRATCH && make_wide_desc(bf16, dims, num_products, 0, &d, &smem);
+  if (!planned || rows < 1 || num_members < 1 || d.w_member != tile_elems)
     return cudaErrorInvalidValue;
   const int num_tiles = (rows + TC_ROWS - 1) / TC_ROWS;
   const long long total = (long long)num_tiles * num_members;
-  if (blocks < 1 || blocks > total || total > INT_MAX ||
-      scratch_bytes < (long long)blocks * d.block_bytes)
-    return cudaErrorInvalidValue;
+  if (blocks < 1 || blocks > total || total > INT_MAX) return cudaErrorInvalidValue;
   const dim3 grid(blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned char* w = static_cast<const unsigned char*>(tiles);
+  if (route == K3W_SMEM) {
+    const K3Args a{x, w, bs, out, dims_dev, d, rows, num_tiles, (int)total, act};
+    const cudaError_t err = launch_k3_wide_smem(bf16, grid, smem, s, a);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+  if (scratch_bytes < (long long)blocks * d.block_bytes) return cudaErrorInvalidValue;
   unsigned char* buf = static_cast<unsigned char*>(scratch);
   DISPATCH(act, bf16, LAUNCH_K3WT, grid, smem, s, x, w, bs, out, dims_dev, d, buf, rows,
            num_tiles, (int)total)

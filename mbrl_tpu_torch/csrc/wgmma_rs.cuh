@@ -1,16 +1,18 @@
 // wgmma.mma_async wrappers with A from registers, for K3's two-tile route
-// (ensemble_mlp.cu): one warpgroup takes a whole tile, so each product is one
-// instruction of the layer's full width, N = 8, 16, ..., 256. bf16 m64nNk16
-// and tf32 m64nNk8, B read from shared memory through a descriptor
-// (K-major); a[0..3] is the thread's A fragment (bf16: two values a
-// register; tf32: one). d holds the N/2 f32 accumulators of the calling
-// thread: the product is added to them when `add` is 1 (scale-d), written over
-// them when it is 0.
+// (ensemble_mlp.cu) and its resident wide route (ensemble_mlp_wide_smem.cu):
+// a warpgroup takes up to 256 columns of a product in one instruction,
+// N = 8, 16, ..., 256: bf16 m64nNk16 and tf32 m64nNk8, B read from shared
+// memory through a descriptor (K-major); a[0..3] is the thread's A fragment
+// (bf16: two values a register; tf32: one). d holds the N/2 f32 accumulators
+// of the calling thread: the product is added to them when `add` is 1
+// (scale-d), written over them when it is 0.
 // PTX names the width in the opcode and lists every accumulator register, so
 // each width is its own instruction; the operand lists are spelled out once
 // below and each width is one line.
 #pragma once
 #include <stdint.h>
+
+#include "tc_chain.cuh"
 
 template <int N>
 __device__ __forceinline__ void wgmma_bf16_rs(float* d, const uint32_t* a, uint64_t db, int add);
@@ -142,3 +144,149 @@ TC_RS_WIDTH(31, 248, "{%124, %125, %126, %127}, %128", "%129")
 TC_RS_WIDTH(32, 256, "{%128, %129, %130, %131}, %132", "%133")
 
 #undef TC_RS_WIDTH
+
+// ---------------------------------------------------------------------------
+// A resident in shared memory as one f32 (or bf16) copy laid out by A
+// fragment, PAIR_SLOT_BYTES a k-step of 64 rows, loaded into registers before
+// each k-step's wgmma; and the k-step's products on it.
+
+#define PAIR_SLOT_BYTES 2048  // one k-step of a 64-row A: 4 warps x 32 lanes x 16 bytes
+
+// Byte offset of lane `lane`'s A fragment for k-step q in warp `warp`'s part
+// of a warpgroup's A region: 16 bytes a lane, lanes 8-15 and 24-31 swizzled
+// by two slots, so that the f32 route's 8-byte reads of its neighbours'
+// slots (pair_fragment) and the 16-byte stores hit no bank twice.
+__device__ __forceinline__ int pair_slot(int q, int warp, int lane) {
+  return ((q * 4 + warp) * 32 + (lane ^ ((lane >> 2) & 2))) * 16;
+}
+
+// This thread's A fragment of k-step q from its warpgroup's region `a`. bf16:
+// four registers of two values, stored as the fragment itself. f32: the
+// values are stored as the wgmma D fragment leaves them, (r, 2u), (r + 8, 2u),
+// (r, 2u + 1), (r + 8, 2u + 1) in lane 4g + u; lane 4g + t takes columns t and
+// t + 4 from lanes 4g + t/2 and 4g + 2 + t/2, and splits them into tf32 hi
+// (f[0..3]) and lo (f[4..7]).
+template <bool BF16>
+__device__ __forceinline__ void pair_fragment(uint32_t* f, const unsigned char* a, int q, int warp,
+                                              int lane) {
+  if constexpr (BF16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(a + pair_slot(q, warp, lane));
+    f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
+  } else {
+    const int t = lane & 3, g4 = lane & ~3, half = (t & 1) * 8;
+    const float2 p = *reinterpret_cast<const float2*>(a + pair_slot(q, warp, g4 + (t >> 1)) + half);
+    const float2 r =
+        *reinterpret_cast<const float2*>(a + pair_slot(q, warp, g4 + 2 + (t >> 1)) + half);
+    const float v[4] = {p.x, p.y, r.x, r.y};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float hi = to_tf32(v[k]);
+      f[k] = __float_as_uint(hi);
+      f[4 + k] = __float_as_uint(to_tf32(v[k] - hi));
+    }
+  }
+}
+
+// Stores a (2-row, 8-column) piece of this thread's A for the next product:
+// values (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1) of column group j, c =
+// 8j + 2t, in the layout pair_fragment reads. bf16 pairs two groups into one
+// fragment: the caller passes both (v[0..3] group 2q, v[4..7] group 2q + 1).
+template <bool BF16>
+__device__ __forceinline__ void pair_store(unsigned char* a, int q, int warp, int lane,
+                                           const float* v) {
+  if constexpr (BF16) {
+    const __nv_bfloat162 f0 = __floats2bfloat162_rn(v[0], v[1]), f1 = __floats2bfloat162_rn(v[2], v[3]);
+    const __nv_bfloat162 f2 = __floats2bfloat162_rn(v[4], v[5]), f3 = __floats2bfloat162_rn(v[6], v[7]);
+    *reinterpret_cast<uint4*>(a + pair_slot(q, warp, lane)) =
+        make_uint4(*reinterpret_cast<const uint32_t*>(&f0), *reinterpret_cast<const uint32_t*>(&f1),
+                   *reinterpret_cast<const uint32_t*>(&f2), *reinterpret_cast<const uint32_t*>(&f3));
+  } else {
+    *reinterpret_cast<float4*>(a + pair_slot(q, warp, lane)) = make_float4(v[0], v[2], v[1], v[3]);
+  }
+}
+
+// One k-step's products for one warpgroup over the full N, as one commit
+// group: fence, the products on the fragment `f`, commit. 3xTF32 for f32,
+// the small cross terms first, as issue_chunk.
+template <int N, bool BF16>
+__device__ __forceinline__ void pair_issue(int first, float* acc, const uint32_t* f, uint32_t b,
+                                           uint32_t b_lo, uint32_t b_lbo) {
+  wgmma_fence();
+  const uint64_t db = smem_desc(b, b_lbo, 128);
+  if constexpr (BF16) {
+    wgmma_bf16_rs<N>(acc, f, db, !first);
+  } else {
+    const uint64_t db_lo = smem_desc(b_lo, b_lbo, 128);
+    wgmma_tf32_rs<N>(acc, f + 4, db, !first);
+    wgmma_tf32_rs<N>(acc, f, db_lo, 1);
+    wgmma_tf32_rs<N>(acc, f, db, 1);
+  }
+  wgmma_commit();
+}
+
+// k-step q: its fragment into `f` (held until the group is done), then its
+// products at the width of this product (a compile-time case). ptxas
+// pipelines register-A wgmma only so: with the fragment loaded inside each
+// case, or a chunk's 2 (f32) or 4 (bf16) k-steps in one group, it
+// serialized every wgmma of the kernel (C7511).
+template <bool BF16>
+__device__ __forceinline__ void pair_step(int n8, int first, float* acc, uint32_t* f,
+                                          const unsigned char* a, int q, int warp, int lane,
+                                          uint32_t b, uint32_t b_lo, uint32_t b_lbo) {
+  pair_fragment<BF16>(f, a, q, warp, lane);
+  switch (n8) {
+#define PAIR_CASE(J)                                                   \
+  case J:                                                              \
+    pair_issue<8 * J, BF16>(first, acc, f, b, b_lo, b_lbo);            \
+    break;
+    PAIR_CASE(1) PAIR_CASE(2) PAIR_CASE(3) PAIR_CASE(4) PAIR_CASE(5) PAIR_CASE(6) PAIR_CASE(7)
+    PAIR_CASE(8) PAIR_CASE(9) PAIR_CASE(10) PAIR_CASE(11) PAIR_CASE(12) PAIR_CASE(13)
+    PAIR_CASE(14) PAIR_CASE(15) PAIR_CASE(16) PAIR_CASE(17) PAIR_CASE(18) PAIR_CASE(19)
+    PAIR_CASE(20) PAIR_CASE(21) PAIR_CASE(22) PAIR_CASE(23) PAIR_CASE(24) PAIR_CASE(25)
+    PAIR_CASE(26) PAIR_CASE(27) PAIR_CASE(28) PAIR_CASE(29) PAIR_CASE(30) PAIR_CASE(31)
+    PAIR_CASE(32)
+#undef PAIR_CASE
+    default:
+      wgmma_commit();
+  }
+}
+
+// The bias (`bias`: this warpgroup's copy in shared memory) and activation of
+// a hidden product's n8 column groups, stored as
+// the next product's A (zero past dout, so the padded k-steps add nothing).
+template <int ACT, bool BF16>
+__device__ __forceinline__ void pair_epilogue(const float* acc, const float* bias, int n8, int dout,
+                                              unsigned char* a, int warp, int lane) {
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < ACC_REGS / 2; j += BF16 ? 2 : 1) {
+    if (j < n8) {
+      float v[8];
+#pragma unroll
+      for (int h = 0; h < (BF16 ? 2 : 1); ++h) {
+        const int c = c0 + 8 * (j + h);
+        const bool in0 = c < dout, in1 = c + 1 < dout;
+        const float b0 = in0 ? bias[c] : 0.0f, b1 = in1 ? bias[c + 1] : 0.0f;
+        v[4 * h] = in0 ? tc_activate<ACT>(acc[4 * (j + h)] + b0) : 0.0f;
+        v[4 * h + 1] = in1 ? tc_activate<ACT>(acc[4 * (j + h) + 1] + b1) : 0.0f;
+        v[4 * h + 2] = in0 ? tc_activate<ACT>(acc[4 * (j + h) + 2] + b0) : 0.0f;
+        v[4 * h + 3] = in1 ? tc_activate<ACT>(acc[4 * (j + h) + 3] + b1) : 0.0f;
+      }
+      pair_store<BF16>(a, BF16 ? j / 2 : j, warp, lane, v);
+    }
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void pair_epilogue(int act, const float* acc, const float* bias, int n8,
+                                              int dout, unsigned char* a, int warp, int lane) {
+  switch (act) {
+#define PAIR_ACT(A)                                                  \
+  case A:                                                            \
+    pair_epilogue<A, BF16>(acc, bias, n8, dout, a, warp, lane);      \
+    break;
+    PAIR_ACT(ACT_RELU) PAIR_ACT(ACT_SILU) PAIR_ACT(ACT_TANH) PAIR_ACT(ACT_ELU) PAIR_ACT(ACT_GELU)
+    PAIR_ACT(ACT_LEAKY_RELU)
+#undef PAIR_ACT
+  }
+}

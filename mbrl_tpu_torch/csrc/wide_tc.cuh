@@ -1,10 +1,11 @@
 // The wide tensor-core chain of K1, K2 and K3 (sm_90a): any width and depth
 // on wgmma, with the activations streamed from a per-block scratch in device
-// memory beside the weights, or (K1 and K2 in bf16) resident in shared
-// memory. wide_tc.cu holds K1's and K2's entries and the design note,
-// wide_rollout.cuh their kernels, ensemble_mlp_wide.cu K3; the PTX wrappers,
-// the wgmma products and the operand layouts are the chain's (tc_chain.cuh),
-// which this header reuses unchanged.
+// memory beside the weights, or resident in shared memory (K1 and K2 in
+// bf16, K3 up to 512 columns). wide_tc.cu holds K1's and K2's entries and
+// the design note, wide_rollout.cuh their kernels, ensemble_mlp_wide.cu K3's
+// entry and its scratch route, ensemble_mlp_wide_smem.cu its resident one;
+// the PTX wrappers, the wgmma products and the operand layouts are the
+// chain's (tc_chain.cuh), which this header reuses unchanged.
 #pragma once
 
 #include <limits.h>
@@ -34,6 +35,32 @@ struct WideDesc {
   int stage_bytes;        // one ring buffer: an A chunk slot, then a B chunk
   int stages;
 };
+
+// K3's arguments on the wide route: x (E, S, in) f32 -> out (E, S, head_out)
+// f32, raw head; `ws` pack_wide's tiles, `dims` the stack's dims in device
+// memory; the member-major (member, 64-row tile) list has `total` entries,
+// `num_tiles` a member; `act` the activation's code
+struct K3Args {
+  const float* x;
+  const unsigned char* ws;
+  const float* bs;
+  float* out;
+  const int* dims;
+  WideDesc d;
+  int S, num_tiles, total, act;
+};
+
+// ensemble_mlp_wide_smem.cu: K3 with a tile's activations resident in shared
+// memory (make_wide_smem_desc's plan in a.d)
+cudaError_t launch_k3_wide_smem(int bf16, dim3 grid, size_t smem, cudaStream_t stream,
+                                const K3Args& a);
+
+// K rows of one ring buffer of K3's resident route, every pass of a product:
+// one k-step f32, two bf16 (32 KB at 512 columns)
+template <bool BF16>
+__host__ __device__ constexpr int wt_slice() {
+  return BF16 ? 32 : 8;
+}
 
 // one ring buffer's A chunk slot: TC_ROWS x CHUNK, every copy (8 KB for both dtypes)
 template <bool BF16>
@@ -586,4 +613,47 @@ static bool make_wide_desc(bool bf16, const int* dims, int num_products, int car
                            WideDesc* d, size_t* smem) {
   return bf16 ? make_wide_desc<true>(dims, num_products, carry_floats, d, smem)
               : make_wide_desc<false>(dims, num_products, carry_floats, d, smem);
+}
+
+// K3's resident plan (ensemble_mlp_wide_smem.cu): the weights as
+// make_wide_desc's (pack_wide's tiles) and no scratch; shared memory the
+// barriers, one activation buffer (TC_ROWS x kmax, one f32 or bf16 copy
+// laid out by A fragment; in f32 at least a head split by K's (TC_ROWS, np)
+// partial sums), a ring (a buffer holds wt_slice K rows of the widest
+// product, in f32 at least one chunk of the widest one-pass product) and one
+// product's biases (nmax f32). false where a product is wider than two
+// passes (a warpgroup takes at most one) or fewer than WT_SMEM_MIN_STAGES
+// ring buffers fit. Mirrors WideTileLayout.k3_stages in ops/kernels.py.
+template <bool BF16>
+static bool make_wide_smem_desc(const int* dims, int num_products, WideDesc* d, size_t* smem) {
+  using C = TC<BF16>;
+  if (!make_wide_desc<BF16>(dims, num_products, 0, d, smem)) return false;
+  int kmax = 0, nmax = 0, n1max = 0, np = 0;
+  for (int i = 0; i < num_products; ++i) {
+    const int kp = wt_round_up(dims[i], C::KSTEP);
+    np = wt_round_up(dims[i + 1], i + 1 < num_products ? C::KSTEP : 8);
+    kmax = kmax > kp ? kmax : kp;
+    nmax = nmax > np ? nmax : np;
+    if (!BF16 && np <= WT_PASS) n1max = n1max > np ? n1max : np;
+  }
+  if (nmax > 2 * WT_PASS) return false;
+  const long long a_bytes = (long long)TC_ROWS * kmax * C::ESIZE;
+  const long long part_bytes = !BF16 && np <= TC_HEAD_SPLIT ? 4LL * TC_ROWS * np : 0;
+  d->a_buf_bytes = a_bytes > part_bytes ? a_bytes : part_bytes;
+  d->head_off = d->carry_off = d->block_bytes = 0;
+  const int slice = wt_slice<BF16>() * nmax, chunk = C::CHUNK * n1max;
+  d->stage_bytes = (slice > chunk ? slice : chunk) * C::ESIZE * C::COPIES;
+  const long long free_bytes = TC_SMEM_LIMIT - WT_BARRIER_BYTES - d->a_buf_bytes - 4LL * nmax;
+  const long long stages = free_bytes > 0 ? free_bytes / d->stage_bytes : 0;
+  d->stages = stages < TC_MAX_STAGES ? (int)stages : TC_MAX_STAGES;
+  if (d->stages < WT_SMEM_MIN_STAGES) return false;
+  *smem = (size_t)(WT_BARRIER_BYTES + d->a_buf_bytes) + (size_t)d->stages * d->stage_bytes +
+          4 * (size_t)nmax;
+  return true;
+}
+
+static bool make_wide_smem_desc(bool bf16, const int* dims, int num_products, WideDesc* d,
+                                size_t* smem) {
+  return bf16 ? make_wide_smem_desc<true>(dims, num_products, d, smem)
+              : make_wide_smem_desc<false>(dims, num_products, d, smem);
 }

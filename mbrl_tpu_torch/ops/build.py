@@ -117,9 +117,10 @@ SIGNATURES = {
         _I, _I, _LL, _P,
     ],
     # the wide route (csrc/ensemble_mlp_wide.cu, csrc/wide_tc.cu): pack_wide's
-    # tiles, host dims, device dims, ..., the scratch and its size in bytes
+    # tiles, host dims, device dims, ..., the scratch and its size in bytes;
+    # K3 then its route (kernels.K3_WIDE_ROUTES; the resident one takes no scratch)
     "mbrl_ensemble_mlp_wide": [
-        _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _P,
+        _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _LL, _P, _LL, _I, _P,
     ],
     # K2 and K1 also take their cluster's blocks (kernels.wide_cluster) before the scratch
     "mbrl_ensemble_mlp_gaussian_wide": [

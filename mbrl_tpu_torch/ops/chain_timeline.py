@@ -7,6 +7,8 @@ and what each chain kernel takes a launch at the main path's shapes.
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --routes --repeats 3
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --root DIR --repeats 3
     python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --wide --clusters --repeats 3
+    python3 -m mbrl_tpu_torch.ops.chain_timeline --ms --wide --routes --root DIR --repeats 3
+    python3 -m mbrl_tpu_torch.ops.chain_timeline --wide                # the wide tables alone
 
 The phase tables build the kernels with ``-DTC_TIMELINE`` (a library of its
 own in ``mbrl_tpu_torch/_build/``) and print, for block (0, 0), the
@@ -31,14 +33,23 @@ step's start, and the block's whole time.
 
 Then the wide route at 4x512 (``csrc/wide_tc.cuh``): K2 at config B's shape
 one block a cluster (the plain ring; in bf16 the resident activations) and
-in clusters of ``kernels.WIDE_CLUSTER`` blocks, and K3
-at that shape and at S=20,000 (in 23), f32 and bf16, with the marks of
+in clusters of ``kernels.WIDE_CLUSTER`` blocks, with the marks of
 ``produce_wide`` and ``consume_wide`` per product: on the consumers' side its
 first chunk landed, its products done, its epilogue fenced and handed on (the
 head: whole); on the producer's, the ready barrier passed and its last copy
 issued. K2's line also gives the ring's pace in product 1 (a 512 x 512
 product): the µs a buffer, and the time the producer waited there for a
-buffer's release by every consumer of the cluster.
+buffer's release by every consumer of the cluster. K3 at that shape and at
+S=20,000 (in 23), f32 and bf16, on both of its wide routes: the scratch
+route with the marks above, the resident route
+(``csrc/ensemble_mlp_wide_smem.cu``) with its own per product (its first
+ring buffer landed, its products done, its epilogue written, the barrier
+after it passed; warpgroup 1's products done; the producer's copies begun
+and issued), each with product 1's pace. Last the block-count check
+(``block_counts``): K3 at 4x512 with the grid forced to ``BLOCK_COUNTS``
+persistent blocks on both routes, f32 and bf16, at S=42,240 (3,300 tiles, a
+whole number for every grid): µs a ring buffer of product 1 and the
+block's time. ``--wide`` prints the wide tables alone.
 
 ``--ms`` times each chain kernel instead, in CUDA graphs of 20 launches (the
 device time a launch, without the wrapper's host time) at the same shapes
@@ -46,7 +57,8 @@ and at K3's (``K3_SHAPES``: D, C100k, M, one row per elite at CL-B, CL-A and
 DG, and the routes' limits), and the wide route at 4x512 (K2 at B, K1 at A,
 K3 at C8k and C100k), ``--repeats`` times over, with the SHA-256 of each
 launch's first output; ``--routes`` also times K3 on the routes it does not
-pick at ``K3_ROUTE_SHAPES``, ``--clusters`` K1's and K2's wide route at the
+pick at ``K3_ROUTE_SHAPES`` (with ``--wide``, K3's wide rows on the scratch
+route too), ``--clusters`` K1's and K2's wide route at the
 cluster sizes the wrappers do not pick, ``--wide`` the wide route alone. For
 a checkout with clusters it
 first prints K1's and K2's wide grids at each cluster size beside the
@@ -93,6 +105,11 @@ K3_TIMELINES = {"B": (DIMS, ROWS), "C100k": ((23,) + DIMS[1:], LONG_ROWS), "M": 
                 "CL-B": (DIMS, 1)}
 # shapes at which --ms also times the routes that K3 does not pick there
 K3_ROUTE_SHAPES = ("C8k", "x1700", "x1000", "M", "C100k", "CL-B", "S64")
+# the block-count check: K3's wide grid forced to each of these persistent
+# blocks at BLOCK_ROWS rows a member (660 tiles a member, 3,300 in all: every
+# grid walks a whole number of tiles a block)
+BLOCK_COUNTS = (5, 25, 66, 132)
+BLOCK_ROWS = 42_240
 
 
 def marks(num_products: int):
@@ -122,6 +139,21 @@ def wide_marks(num_products: int):
         names[PRODUCER + j] = f"producer_p{i}_ready_passed"
         names[PRODUCER + j + 1] = f"producer_p{i}_issued"
     names[31] = "sampled"
+    return names
+
+
+def k3_smem_marks(num_products: int):
+    """The marks of K3's resident wide route
+    (``csrc/ensemble_mlp_wide_smem.cu``): warpgroup 0's, warpgroup 1's
+    products done, the producer's, by index into the timeline."""
+    names = {0: "start", 1: "barriers", 2: "input", 29: "tile_begun", 30: "tile_done"}
+    for i in range(min(num_products, 6)):
+        j = 3 + 4 * i
+        names[j], names[j + 1] = f"p{i}_landed", f"p{i}_products"
+        names[j + 2], names[j + 3] = f"p{i}_written", f"p{i}_passed"
+        names[32 + j + 1] = f"wg1_p{i}_products"
+        names[PRODUCER + j] = f"producer_p{i}_begun"
+        names[PRODUCER + j + 1] = f"producer_p{i}_issued"
     return names
 
 
@@ -202,10 +234,46 @@ def k3_launch(dtype: torch.dtype, dims, rows: int, route: str = None):
             K.ACTIVATION_CODES[stack.activation], int(stack.low_precision),
             tiles.layout.member_elems, stack.ws.data_ptr(), K.K3_ROUTES.index(route))
 
+    keep = (x, stack, tiles)  # the launch reads them through raw pointers
+
     def launch():
         code = load_library().mbrl_ensemble_mlp(*args, K._stream(x.device))
-        if code != 0:
+        if code != 0 or keep is None:
             raise RuntimeError(f"K3 on the {route} route: CUDA error {code}")
+        return out
+
+    return launch
+
+
+def k3_wide_launch(dtype: torch.dtype, dims, rows: int, route: str, blocks: int = None):
+    """K3 on the wide entry's ``route`` (``kernels.K3_WIDE_ROUTES``) at (dims,
+    rows a member), whatever the wrapper would pick, on ``blocks`` persistent
+    blocks (the wrapper's grid if None): a function that launches it once."""
+    from mbrl_tpu_torch.ops import kernels as K
+    from mbrl_tpu_torch.ops.build import load_library
+
+    g = torch.Generator().manual_seed(SEED)
+    stack = _stack(dtype, dims, g)
+    x = torch.randn((MEMBERS, rows, dims[0]), generator=g).to("cuda")
+    tiles = K.pack_wide(stack)
+    dev = x.device
+    out = torch.empty((MEMBERS, rows, dims[-1]), device=dev)
+    blocks = blocks or K.persistent_blocks(rows, MEMBERS, K.sm_count(dev))
+    scratch = (torch.empty(blocks * tiles.layout.block_bytes(), dtype=torch.uint8, device=dev)
+               if route == "scratch" else None)
+    args = (x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(),
+            K._dims_arg(stack), K._device_dims(stack.dims, dev).data_ptr(), stack.num_products,
+            MEMBERS, rows, blocks, K.ACTIVATION_CODES[stack.activation],
+            int(stack.low_precision), tiles.layout.member_elems,
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel(), K.K3_WIDE_ROUTES.index(route))
+
+    keep = (x, stack, tiles, scratch)  # the launch reads them through raw pointers
+
+    def launch():
+        code = load_library().mbrl_ensemble_mlp_wide(*args, K._stream(dev))
+        if code != 0 or keep is None:
+            raise RuntimeError(f"K3 on the wide {route} route: CUDA error {code}")
         return out
 
     return launch
@@ -309,21 +377,72 @@ def timeline_k3(dtype: torch.dtype, rows: int, lib, dims=DIMS) -> dict:
     return out
 
 
-def timeline_k3_wide(dtype: torch.dtype, rows: int, lib, dims) -> dict:
-    """K3's wide route: block 0's last tile, from that tile's start (mark
-    29), and the block's whole time over its tiles."""
+def k3_ring_period(us: dict, layout, route: str) -> dict:
+    """The pace of K3's wide ring in product 1 (a 512 x 512 product): its
+    buffers (the scratch route's 40 KB of an activation chunk and a weight
+    chunk, the resident route's weight slice), the µs a buffer from its first
+    landed to its products done, and that whole span."""
     from mbrl_tpu_torch.ops import kernels as K
 
-    buf = _run(k3_launch(dtype, dims, rows), lib.mbrl_timeline_k3_wide)
-    names = {k: n for k, n in wide_marks(len(dims) - 1).items() if 2 <= k < 29 or k > PRODUCER + 2}
-    names[30] = "head_written"
-    blocks = K.persistent_blocks(rows, MEMBERS, K.sm_count(torch.device("cuda")))
+    if route == "smem":
+        buffers = sum(1 for i, _, _ in K.k3_ring_copies(layout) if i == 1)
+        nbytes = layout.k3_stage_bytes
+    else:
+        buffers = sum(1 for i, _, _ in K.wide_ring(layout) if i == 1)
+        nbytes = layout.stage_bytes
+    span = us["p1_products"] - us["p1_landed"]
+    return {"p1_buffers": buffers, "p1_buffer_bytes": nbytes, "p1_us": round(span, 3),
+            "p1_us_per_buffer": round(span / buffers, 4)}
+
+
+def timeline_k3_wide(dtype: torch.dtype, rows: int, lib, dims, route: str = None,
+                     blocks: int = None) -> dict:
+    """K3's wide route: block 0's last tile, from that tile's start (mark
+    29), the block's whole time over its tiles and product 1's ring pace; on
+    the route the wrapper picks (``route`` None, through the wrapper) or on
+    ``route`` and ``blocks`` blocks through the entry."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    layout = K.WideTileLayout(tuple(dims), dtype == torch.bfloat16)
+    picked = "smem" if layout.k3_resident else "scratch"
+    if route is None:
+        route, launch = picked, k3_launch(dtype, dims, rows)
+    else:
+        launch = k3_wide_launch(dtype, dims, rows, route, blocks)
+    reader = lib.mbrl_timeline_k3_wide_smem if route == "smem" else lib.mbrl_timeline_k3_wide
+    buf = _run(launch, reader)
+    if route == "smem":
+        names = {k: n for k, n in k3_smem_marks(len(dims) - 1).items() if k not in (0, 1, 29)}
+    else:
+        names = {k: n for k, n in wide_marks(len(dims) - 1).items()
+                 if 2 <= k < 29 or k > PRODUCER + 2}
+        names[30] = "head_written"
+    blocks = blocks or K.persistent_blocks(rows, MEMBERS, K.sm_count(torch.device("cuda")))
+    us = _us(buf, names, 29)
     return {
-        "dims": list(dims), "rows_per_member": rows, "blocks": blocks,
-        "tiles_of_block_0": len(K.block_tiles(0, rows, MEMBERS, blocks)),
+        "dims": list(dims), "rows_per_member": rows, "route": route, "picked": route == picked,
+        "blocks": blocks, "tiles_of_block_0": len(K.block_tiles(0, rows, MEMBERS, blocks)),
         "block_us": round((buf[30] - buf[0]) / 1e3, 3),
-        "last_tile_us_since_its_start": _us(buf, names, 29),
+        "last_tile_us_since_its_start": us, **k3_ring_period(us, layout, route),
     }
+
+
+def block_counts(lib) -> list:
+    """The block-count check: K3 at 4x512 (in 23) and ``BLOCK_ROWS`` rows a
+    member on both wide routes, f32 and bf16, with the grid forced to each of
+    ``BLOCK_COUNTS``: product 1's µs a ring buffer and the block's time.
+    Where a resource the blocks share paces the ring, the µs a buffer grows
+    with the blocks."""
+    dims = (23,) + WIDE_DIMS[1:]
+    out = []
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for route in ("scratch", "smem"):
+            for blocks in BLOCK_COUNTS:
+                r = timeline_k3_wide(dtype, BLOCK_ROWS, lib, dims, route, blocks)
+                out.append({"dtype": name, **{k: r[k] for k in (
+                    "route", "blocks", "tiles_of_block_0", "block_us", "p1_buffers",
+                    "p1_buffer_bytes", "p1_us", "p1_us_per_buffer")}})
+    return out
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -366,7 +485,7 @@ def launch_ms(repeats: int, routes: bool = False, clusters: bool = False,
             launches[f"K1@A/{name}"] = k1_launch(dtype)
             for shape, (dims, rows) in K3_SHAPES.items():
                 launches[f"K3@{shape}/{name}"] = k3_launch(dtype, dims, rows)
-        for shape, launch in wide_launches(dtype).items():
+        for shape, launch in wide_launches(dtype, routes=routes and wide).items():
             launches[f"{shape}/{name}"] = launch
         if clusters:  # the cluster sizes the wrappers do not pick
             from mbrl_tpu_torch.ops import kernels as K
@@ -375,7 +494,7 @@ def launch_ms(repeats: int, routes: bool = False, clusters: bool = False,
                 if cluster != 1:
                     for shape, launch in wide_launches(dtype, cluster).items():
                         launches[f"{shape}/{name}/cluster{cluster}"] = launch
-        if routes:  # the routes K3 does not pick at these shapes
+        if routes and not wide:  # the routes K3 does not pick at these shapes
             from mbrl_tpu_torch.ops import kernels as K
 
             sms = K.sm_count(torch.device("cuda"))
@@ -394,16 +513,28 @@ def launch_ms(repeats: int, routes: bool = False, clusters: bool = False,
     return times, digests
 
 
-def wide_launches(dtype: torch.dtype, cluster: int = None) -> dict:
+def wide_launches(dtype: torch.dtype, cluster: int = None, routes: bool = False) -> dict:
     """The wide route at 4x512: name -> a function that launches it once
     through its wrapper: K2 at config B's shape, K1 at A's, K3 at C8k's and
     C100k's; with ``cluster``, K2 and K1 alone, in clusters of that many
-    blocks."""
+    blocks; with ``routes``, K3 also on the wide route it does not pick,
+    through the entry."""
     launches = {"K2wide@B/W512": k2_launch(dtype, WIDE_DIMS, ROWS, OUT, cluster),
                 "K1wide@A/W512": k1_launch(dtype, K1_WIDE_DIMS, cluster)}
     if cluster is None:
-        launches["K3wide@C8k/W512"] = k3_launch(dtype, WIDE_DIMS, ROWS)
-        launches["K3wide@C100k/W512"] = k3_launch(dtype, (23,) + WIDE_DIMS[1:], LONG_ROWS)
+        k3 = {"K3wide@C8k/W512": (WIDE_DIMS, ROWS),
+              "K3wide@C100k/W512": ((23,) + WIDE_DIMS[1:], LONG_ROWS)}
+        for name, (dims, rows) in k3.items():
+            launches[name] = k3_launch(dtype, dims, rows)
+        if routes:
+            from mbrl_tpu_torch.ops import kernels as K
+
+            for name, (dims, rows) in k3.items():
+                picked = "smem" if K.WideTileLayout(dims, dtype == torch.bfloat16).k3_resident \
+                    else "scratch"
+                for route in K.K3_WIDE_ROUTES:
+                    if route != picked:
+                        launches[f"{name}/{route}"] = k3_wide_launch(dtype, dims, rows, route)
     return launches
 
 
@@ -440,7 +571,8 @@ def main(argv=None) -> int:
                         help="with --ms, time K3 on every route at K3_ROUTE_SHAPES")
     parser.add_argument("--clusters", action="store_true",
                         help="with --ms, time K1's and K2's wide route at every cluster size")
-    parser.add_argument("--wide", action="store_true", help="with --ms, the wide route alone")
+    parser.add_argument("--wide", action="store_true",
+                        help="the wide route alone (with --ms its times, else its phase tables)")
     parser.add_argument("--k3", action="store_true", help="the phase tables of K3 alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -466,9 +598,12 @@ def main(argv=None) -> int:
     lib = build.load_library()
     for reader in ("mbrl_timeline", "mbrl_timeline_k3", "mbrl_timeline_wide",
                    "mbrl_timeline_wide_cluster", "mbrl_timeline_wide_smem",
-                   "mbrl_timeline_k3_wide"):
+                   "mbrl_timeline_k3_wide", "mbrl_timeline_k3_wide_smem"):
         getattr(lib, reader).argtypes = [ctypes.c_void_p]
     dtypes = (("f32", torch.float32), ("bf16", torch.bfloat16))
+    if args.wide:
+        wide_tables(lib, dtypes)
+        return 0
     for shape, (dims, rows) in K3_TIMELINES.items():
         for name, dtype in dtypes:
             print(json.dumps({"kernel": "K3", "shape": shape, "dtype": name,
@@ -482,6 +617,13 @@ def main(argv=None) -> int:
     for name, dtype in dtypes:
         print(json.dumps({"kernel": "K1", "shape": "A", "dtype": name, **timeline_k1(dtype, lib)}),
               flush=True)
+    wide_tables(lib, dtypes)
+    return 0
+
+
+def wide_tables(lib, dtypes) -> None:
+    """The wide route's phase tables: K2 at B, K3 at C8k and C100k on both
+    of its routes, then the block-count check."""
     from mbrl_tpu_torch.ops import kernels as K
 
     for name, dtype in dtypes:
@@ -490,9 +632,10 @@ def main(argv=None) -> int:
                               **timeline_wide_k2(dtype, lib, cluster)}), flush=True)
     for rows, dims in ((ROWS, WIDE_DIMS), (LONG_ROWS, (23,) + WIDE_DIMS[1:])):
         for name, dtype in dtypes:
-            print(json.dumps({"kernel": "K3 wide", "dtype": name,
-                              **timeline_k3_wide(dtype, rows, lib, dims)}), flush=True)
-    return 0
+            for route in K.K3_WIDE_ROUTES:
+                print(json.dumps({"kernel": "K3 wide", "dtype": name,
+                                  **timeline_k3_wide(dtype, rows, lib, dims, route)}), flush=True)
+    print(json.dumps({"kernel": "K3 wide", "block_counts": block_counts(lib)}), flush=True)
 
 
 if __name__ == "__main__":

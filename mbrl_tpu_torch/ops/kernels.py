@@ -40,7 +40,9 @@ columns) with the activations streamed from a per-block scratch. There K1
 and K2 keep a bf16 stack's activations in shared memory where they fit
 (``WideTileLayout.resident``), and on request run in clusters of blocks that
 fetch each weight chunk once (:func:`wide_grid`, :func:`chunk_issuer`,
-:func:`k1_shared`). On the
+:func:`k1_shared`); K3 keeps any stack's up to 512 columns there, one pass a
+product (``WideTileLayout.k3_resident``, :func:`k3_columns`,
+:func:`k3_ring_copies`; ``csrc/ensemble_mlp_wide_smem.cu``). On the
 chain K3 takes one of three routes by shape (:func:`k3_route`): one tile a
 block in one wave, two tiles a block past it, a cluster of blocks a member
 at a few rows a member.
@@ -102,9 +104,14 @@ WIDE_PASS = 256
 # the plain ring in f32 and than the resident activations in bf16.
 WIDE_CLUSTERS = (1, 2)
 WIDE_CLUSTER = 2
-# ring buffers that the wide route's resident-activation plan (bf16,
-# csrc/wide_smem.cu) needs beside its two activation buffers
+# ring buffers that the wide route's resident-activation plans (K1's and K2's
+# in bf16, csrc/wide_smem.cu; K3's, csrc/ensemble_mlp_wide_smem.cu) need
+# beside their activation buffers
 WIDE_SMEM_MIN_STAGES = 3
+# K3's routes on the wide route (csrc/ensemble_mlp_wide.cu, in the entry's
+# numbering): a tile's activations in a per-block scratch in device memory,
+# or resident in shared memory where WideTileLayout.k3_resident holds
+K3_WIDE_ROUTES = ("scratch", "smem")
 # K3's routes on the chain (csrc/ensemble_mlp.cu, in the entry's numbering):
 # one tile a block, two tiles a block, a cluster of blocks a member; the
 # two-tile route's ring buffers at most and A bytes a k-step of a warpgroup;
@@ -346,6 +353,67 @@ class WideTileLayout(ChainLayout):
         weights = self.stage_bytes - MAX_TILE * self.chunk * self.esize * self.copies
         return max(0, min(TC_MAX_STAGES, (TC_SMEM_BYTES - 128 - 2 * self.a_buf_bytes) // weights))
 
+    @functools.cached_property
+    def k3_slice(self) -> int:
+        """K rows of one ring buffer of K3's resident route (every pass of a
+        product): one k-step f32, two bf16."""
+        return 32 if self.low_precision else 8
+
+    @functools.cached_property
+    def k3_head_split(self) -> bool:
+        """Whether K3's resident route splits the head by K over its two
+        warpgroups (f32, at most ``TC_HEAD_SPLIT`` padded columns, as the
+        chain)."""
+        return not self.low_precision and self.n_pad[-1] <= TC_HEAD_SPLIT
+
+    @functools.cached_property
+    def k3_a_bytes(self) -> int:
+        """K3's resident activation buffer: 64 rows of the widest input, one
+        f32 or bf16 copy laid out by A fragment (``PAIR_SLOT_BYTES`` a
+        k-step); at least a head split by K's (64, n_pad) f32 partial sums."""
+        part = 4 * MAX_TILE * self.n_pad[-1] if self.k3_head_split else 0
+        return max(MAX_TILE * max(self.k_pad) * self.esize, part)
+
+    @functools.cached_property
+    def k3_stage_bytes(self) -> int:
+        """One ring buffer of K3's resident route: ``k3_slice`` K rows of the
+        widest product, every pass and copy, and in f32 at least one chunk of
+        the widest one-pass product."""
+        one_pass = [n for n in self.n_pad if n <= WIDE_PASS and not self.low_precision]
+        rows = max(self.k3_slice * max(self.n_pad), self.chunk * max(one_pass, default=0))
+        return rows * self.esize * self.copies
+
+    def k3_rows(self, i: int) -> int:
+        """K rows of one ring buffer of product i on K3's resident route:
+        ``k3_slice`` of every pass, or in f32 as many whole chunks of a
+        one-pass product as a buffer holds."""
+        n = self.n_pad[i]
+        if n > WIDE_PASS or self.low_precision:
+            return self.k3_slice
+        return self.k3_stage_bytes // (self.chunk * n * self.esize * self.copies) * self.chunk
+
+    @functools.cached_property
+    def k3_stages(self) -> int:
+        """Ring buffers of K3's resident plan (``make_wide_smem_desc``) beside
+        the barriers, the activation buffer and one product's biases; 0 where
+        a product is wider than two passes (a warpgroup takes at most one)."""
+        nmax = max(self.n_pad)
+        if nmax > 2 * WIDE_PASS:
+            return 0
+        free = TC_SMEM_BYTES - 128 - self.k3_a_bytes - 4 * nmax
+        return max(0, min(TC_MAX_STAGES, free // self.k3_stage_bytes))
+
+    @functools.cached_property
+    def k3_smem_bytes(self) -> int:
+        return 128 + self.k3_a_bytes + self.k3_stages * self.k3_stage_bytes + 4 * max(self.n_pad)
+
+    @property
+    def k3_resident(self) -> bool:
+        """Whether K3 keeps this stack's activations in shared memory
+        (``csrc/ensemble_mlp_wide_smem.cu``; every padded layer at most 512
+        columns), where the other wide stacks stream them from the scratch."""
+        return self.k3_stages >= WIDE_SMEM_MIN_STAGES
+
     @property
     def resident(self) -> bool:
         """Whether K1 and K2 keep this stack's activations in shared memory
@@ -551,6 +619,51 @@ def wide_ring(layout: "WideTileLayout") -> List[Tuple[int, int, int]]:
     pass, first K row of the chunk)."""
     return [(i, p0, k0) for i in range(len(layout.dims) - 1) for p0, _ in layout.passes(i)
             for k0 in range(0, layout.k_pad[i], layout.chunk)]
+
+
+def k3_columns(n_pad: int, wg: int, unit: int, split: bool = False) -> Tuple[int, int, int, int]:
+    """Where warpgroup ``wg``'s columns of a product ``n_pad`` wide lie on
+    K3's resident route (``k3_cols``): (first column of its pass, the pass's
+    width, its first column in the pass, its 8-column groups). Two passes:
+    warpgroup ``wg`` takes pass ``wg``; one: warpgroup 0 the first half of the
+    groups in units of ``unit`` (2 for a bf16 hidden layer), 1 the rest; a
+    head split by K (``split``): both every column."""
+    if n_pad > WIDE_PASS:
+        w = n_pad - WIDE_PASS if wg else WIDE_PASS
+        return wg * WIDE_PASS, w, 0, w // 8
+    if split:
+        return 0, n_pad, 0, n_pad // 8
+    half = (n_pad // 8 // unit + 1) // 2 * unit
+    return 0, n_pad, 8 * half if wg else 0, n_pad // 8 - half if wg else half
+
+
+def k3_ring_copies(layout: "WideTileLayout") -> List[Tuple[int, int, List[Tuple[int, int, int]]]]:
+    """The ring buffers of one chain on K3's resident route, in the order the
+    producer fills them (``produce_k3_smem``): (product, first K row, [(source
+    element offset in a member's tiles, destination element offset in the
+    buffer, elements), ...]): one copy a pass and tf32 copy, or of an f32
+    one-pass product one copy of whole chunks."""
+    out = []
+    prod = 0
+    for i in range(len(layout.dims) - 1):
+        kp, np_ = layout.k_pad[i], layout.n_pad[i]
+        rows = layout.k3_rows(i)
+        for k in range(0, kp, rows):
+            sl = min(rows, kp - k)
+            if np_ <= WIDE_PASS and not layout.low_precision:  # whole chunks: one run of the tiles
+                out.append((i, k, [(prod + k * np_ * layout.copies, 0, sl * np_ * layout.copies)]))
+                continue
+            k0 = k // layout.chunk * layout.chunk
+            kc = min(layout.chunk, kp - k0)
+            copies, dst = [], 0
+            for p0, w in layout.passes(i):
+                src = prod + p0 * kp * layout.copies + k0 * w * layout.copies + (k - k0) * w
+                for c in range(layout.copies):
+                    copies.append((src + c * kc * w, dst, sl * w))
+                    dst += sl * w
+            out.append((i, k, copies))
+        prod += kp * np_ * layout.copies
+    return out
 
 
 def chunk_issuer(it: int, share: int) -> int:
@@ -846,7 +959,9 @@ def fused_ensemble_mlp(
     (E, S, head_out), any head width (``2 * out`` of a Gaussian model, ``out``
     of a deterministic one). ``tiles`` is ``pack_tiles(stack)`` (the chain's
     or the wide route's), packed here when not given (pack once per rollout
-    or model state)."""
+    or model state). On the wide route K3 keeps a tile's activations in
+    shared memory where ``WideTileLayout.k3_resident`` holds, else in a
+    scratch in device memory."""
     if not _dispatch(x):
         return fused_ensemble_mlp_plain(x, stack)
     from mbrl_tpu_torch.ops.build import load_library
@@ -871,11 +986,15 @@ def fused_ensemble_mlp(
     else:
         blocks = persistent_blocks(rows, e, sm_count(x.device))
         tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
-        scratch = _wide_scratch(tiles.layout, x.device, blocks)
-        code = lib.mbrl_ensemble_mlp_wide(
-            *head, _device_dims(stack.dims, x.device).data_ptr(), *tail, scratch.data_ptr(),
-            scratch.numel(), _stream(x.device),
-        )
+        dims = _device_dims(stack.dims, x.device).data_ptr()
+        if tiles.layout.k3_resident:  # no scratch: the activations stay in shared memory
+            code = lib.mbrl_ensemble_mlp_wide(*head, dims, *tail, None, 0,
+                                              K3_WIDE_ROUTES.index("smem"), _stream(x.device))
+        else:
+            scratch = _wide_scratch(tiles.layout, x.device, blocks)
+            code = lib.mbrl_ensemble_mlp_wide(*head, dims, *tail, scratch.data_ptr(),
+                                              scratch.numel(), K3_WIDE_ROUTES.index("scratch"),
+                                              _stream(x.device))
     _raise_on_error(code, "fused_ensemble_mlp")
     fused_ensemble_mlp.launches += 1
     return out

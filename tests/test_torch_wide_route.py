@@ -130,7 +130,13 @@ def test_wrappers_reach_the_entry_of_their_route(fake_card, name):
         lay = tk.WideTileLayout(dims, False)
         # all three on the tensor cores: pack_wide's tiles, scratch in bytes of their layout
         assert k3[12] == k2[17] == lay.member_elems
-        assert k3[-2] == tk.persistent_blocks(100, 5, 132) * lay.block_bytes()
+        # K3 by shape: resident up to 512 columns (no scratch), else a scratch
+        # of persistent blocks
+        if lay.k3_resident:
+            assert k3[-2] == tk.K3_WIDE_ROUTES.index("smem") and k3[-3] == 0
+        else:
+            assert k3[-2] == tk.K3_WIDE_ROUTES.index("scratch")
+            assert k3[-3] == tk.persistent_blocks(100, 5, 132) * lay.block_bytes()
         assert k2[-2] == 2 * 5 * lay.block_bytes()
         assert k1[-2] == (batch // 64) * tk.WideTileLayout(stack1.dims, False).block_bytes(17)
         # the device dims hold the stack's dims

@@ -311,7 +311,14 @@ def test_the_wide_entries_get_wide_tiles_and_their_scratch(fake_card, name, dt):
     assert a3[1] == tiles.w.data_ptr() and a3[11] == int(stack.low_precision)
     assert a3[12] == lay.member_elems
     assert a3[9] == tk.persistent_blocks(100, 5, 132)
-    assert a3[-2] == a3[9] * lay.block_bytes()  # persistent blocks, no K1 carry
+    # K3's route by shape: resident in shared memory up to 512 columns (no
+    # scratch), else a scratch of persistent blocks, no K1 carry
+    if lay.k3_resident:
+        assert a3[-2] == tk.K3_WIDE_ROUTES.index("smem") and a3[-4] is None and a3[-3] == 0
+    else:
+        assert a3[-2] == tk.K3_WIDE_ROUTES.index("scratch")
+        assert a3[-3] == a3[9] * lay.block_bytes()
+    assert lay.k3_resident == (name != "w1024")
     assert a2[3] == tiles.w.data_ptr() and a2[17] == lay.member_elems
     assert a2[-2] == 2 * 5 * lay.block_bytes()  # (tiles, E) blocks
     assert a1[6] == tiles1.w.data_ptr() and a1[24] == lay1.member_elems
@@ -342,14 +349,19 @@ def test_k3_blocks_walk_every_tile_once(rows, members):
 
 @pytest.mark.parametrize("rows", [1600, 20_000], ids=["C8k", "C100k"])
 def test_k3_wide_scratch_is_sized_for_persistent_blocks(fake_card, rows):
-    dims = (23, 512, 512, 512, 512, 36)
-    stack = _stack(dims, torch.bfloat16, e=5)
-    tk.fused_ensemble_mlp(torch.zeros((5, rows, 23)), stack)
-    ((name, args),) = fake_card.calls
-    lay = tk.WideTileLayout(dims, True)
+    # 4 x 512 takes the resident route (no scratch), 2 x 1024 the scratch
+    # route, whose scratch holds the persistent blocks
+    dims, wider = (23, 512, 512, 512, 512, 36), (23, 1024, 1024, 36)
+    for d in (dims, wider):
+        tk.fused_ensemble_mlp(torch.zeros((5, rows, 23)), _stack(d, torch.bfloat16, e=5))
+    (name, args), (name_w, args_w) = fake_card.calls
+    lay, lay_w = tk.WideTileLayout(dims, True), tk.WideTileLayout(wider, True)
     blocks, pairs = tk.persistent_blocks(rows, 5, 132), 5 * -(-rows // tk.MAX_TILE)
-    assert name == "mbrl_ensemble_mlp_wide" and args[8:10] == (rows, blocks)
-    assert args[-2] == blocks * lay.block_bytes()
+    assert name == name_w == "mbrl_ensemble_mlp_wide" and args[8:10] == args_w[8:10] == (rows, blocks)
+    assert lay.k3_resident and args[-2] == tk.K3_WIDE_ROUTES.index("smem")
+    assert args[-4] is None and args[-3] == 0
+    assert not lay_w.k3_resident and args_w[-2] == tk.K3_WIDE_ROUTES.index("scratch")
+    assert args_w[-3] == blocks * lay_w.block_bytes()
     assert (blocks < pairs) == (rows == 20_000)  # past one wave the blocks walk tiles
 
 
