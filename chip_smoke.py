@@ -216,6 +216,14 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+def wrapper_launches() -> dict:
+    """Each kernel wrapper's launches since the last reset: ``launch_counts``
+    without K3's counts by route (its ``fused_ensemble_mlp.<route>`` keys)."""
+    from mbrl_tpu_torch.ops import kernels as K
+
+    return {w.__name__: w.launches for w in K.KERNEL_WRAPPERS}
+
+
 def sync(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1496,7 +1504,7 @@ def propagation_paths(device: str = "cuda"):
                                                     propagation_indices=indices.to(dev))
             sync(dev)
             if dev == device:
-                launches = K.launch_counts()
+                launches = wrapper_launches()
             vals[dev] = (mean.float().cpu(), logvar.float().cpu())
         for v in vals[device]:
             check(tuple(v.shape) == (rows, OBS_B), f"propagation {name}: shape {tuple(v.shape)}")
@@ -3211,7 +3219,7 @@ def published_config_e() -> int:
     K.reset_launch_counts()
     t0 = time.perf_counter()
     numbers, _, _, work_dir = pets_config_e(planned_steps=steps)
-    counts = K.launch_counts()
+    counts = wrapper_launches()
     shutil.rmtree(work_dir, ignore_errors=True)
     want = {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": numbers["planned_steps"] * 5 * 15,
             "fused_ensemble_mlp": 0}
@@ -3237,7 +3245,7 @@ def published_config_m() -> int:
     K.reset_launch_counts()
     t0 = time.perf_counter()
     numbers, work_dir, _ = mbpo_config_m(config=config)
-    counts = K.launch_counts()
+    counts = wrapper_launches()
     shutil.rmtree(work_dir, ignore_errors=True)
     want = {"fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0,
             "fused_ensemble_mlp": numbers["retrainings"]}  # rollout length 1
@@ -3311,7 +3319,7 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
     def counted(run):
         K.reset_launch_counts()
         out = run()
-        return out, K.launch_counts()
+        return out, wrapper_launches()
 
     times_a, counts_a = counted(lambda: plan_config("A"))
     times_b, counts_b = counted(lambda: plan_config("B"))

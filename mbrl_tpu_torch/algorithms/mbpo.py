@@ -46,6 +46,7 @@ from mbrl_tpu_torch.planning import RandomAgent
 from mbrl_tpu_torch.planning.sac import SAC, SACAgent
 from mbrl_tpu_torch.util import checkpoint as ckpt
 from mbrl_tpu_torch.util import common as util_common
+from mbrl_tpu_torch.util import profiling
 from mbrl_tpu_torch.util.device_buffer import (
     DeviceBufferState, DeviceReplayBuffer, DeviceTransitionDataset,
 )
@@ -59,6 +60,27 @@ MBPO_LOG_FORMAT = mbrl_tpu_torch.constants.EVAL_LOG_FORMAT + [
 ]
 
 
+@profiling.span("start_rollout")
+def start_rollout(
+    model_env: ModelEnv,
+    model_state,
+    initial_obs: torch.Tensor,
+    generator: torch.Generator,
+    horizon: int,
+):
+    """The model state of a rollout of ``horizon`` steps from
+    ``initial_obs``: ``reset``, ``prepare_rollout``, then ``ModelEnv.shard``."""
+    ms = model_env.reset(model_state, initial_obs, generator)
+    prepare = getattr(model_env.dynamics_model, "prepare_rollout", None)
+    if prepare is not None:
+        # every step's TS1 permutation drawn before the loop
+        ms = prepare(model_state, ms, horizon, generator)
+    # under a mesh the model's steps split their work over the ranks
+    # (ModelEnv.shard); every rank holds the whole batch
+    return model_env.shard(ms)
+
+
+@profiling.span("imagined_rollout")
 def imagined_rollout(
     model_env: ModelEnv,
     model_state,
@@ -73,21 +95,15 @@ def imagined_rollout(
 ) -> DeviceBufferState:
     """Branched model rollouts from ``initial_obs`` into the device SAC buffer
     (the JAX package's ``_ImaginedRolloutProgram``, mbpo.py:49-106): ``reset``,
-    ``prepare_rollout``, then ``horizon`` steps of a policy action (a sample,
-    or the mean unless ``sac_samples_action``), ``ModelEnv.step`` with
-    ``sample=True`` and a masked write of the rows still alive (``mask = 1 -
-    terminated``). ``generator`` lives on the device and drives the model's and
-    the policy's draws, so nothing waits for the device."""
+    ``prepare_rollout`` (:func:`start_rollout`), then ``horizon`` steps of a
+    policy action (a sample, or the mean unless ``sac_samples_action``),
+    ``ModelEnv.step`` with ``sample=True`` and a masked write of the rows still
+    alive (``mask = 1 - terminated``). ``generator`` lives on the device and
+    drives the model's and the policy's draws, so nothing waits for the
+    device."""
     batch = initial_obs.shape[0]
     with torch.no_grad():
-        ms = model_env.reset(model_state, initial_obs, generator)
-        prepare = getattr(model_env.dynamics_model, "prepare_rollout", None)
-        if prepare is not None:
-            # every step's TS1 permutation drawn before the loop
-            ms = prepare(model_state, ms, horizon, generator)
-        # under a mesh the model's steps split their work over the ranks
-        # (ModelEnv.shard); every rank holds the whole batch
-        ms = model_env.shard(ms)
+        ms = start_rollout(model_env, model_state, initial_obs, generator, horizon)
         obs = initial_obs
         alive = torch.ones((batch,), dtype=torch.bool, device=initial_obs.device)
         for _ in range(horizon):

@@ -27,6 +27,7 @@ import torch
 from mbrl_tpu_torch.device import DeviceLike, randint, randperm, randn, resolve_device
 from mbrl_tpu_torch.ops import kernels
 from mbrl_tpu_torch.ops.math import truncated_normal_init
+from mbrl_tpu_torch.util import profiling
 
 Params = Dict[str, Any]
 
@@ -294,13 +295,32 @@ class GaussianMLP:
         p = cached.view
         num_used = p["head"]["w"].shape[0]
         batch = x.shape[0]
-        h = x[perm].reshape(num_used, batch // num_used, x.shape[-1]).float().contiguous()
+        h = self._permute_rows(x, perm, num_used)
         raw = kernels.fused_ensemble_mlp(h, cached.stack, tiles=cached.tiles)
         mean, logvar = self._bound(p, raw)
         mean = mean.reshape(batch, -1)
         if logvar is not None:
             logvar = logvar.reshape(batch, -1)
+        return self._unpermute_rows(mean, logvar, perm, inv)
+
+    @profiling.span("GaussianMLP._permute_rows")
+    def _permute_rows(self, x: torch.Tensor, perm: torch.Tensor, num_used: int) -> torch.Tensor:
+        """Rows ``x[perm]`` as ``num_used`` equal contiguous shards, one a member."""
+        batch = x.shape[0]
+        return x[perm].reshape(num_used, batch // num_used, x.shape[-1]).float().contiguous()
+
+    @profiling.span("GaussianMLP._unpermute_rows")
+    def _unpermute_rows(
+        self,
+        mean: torch.Tensor,
+        logvar: Optional[torch.Tensor],
+        perm: torch.Tensor,
+        inv: Optional[torch.Tensor],
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The shuffled rows back in the batch's order; ``inv`` is ``perm``'s
+        inverse, computed here when not given."""
         if inv is None:
+            batch = perm.shape[0]
             inv = torch.empty_like(perm)
             inv[perm] = torch.arange(batch, dtype=perm.dtype, device=perm.device)
         return mean[inv], None if logvar is None else logvar[inv]

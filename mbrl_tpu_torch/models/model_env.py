@@ -36,6 +36,7 @@ import torch
 from mbrl_tpu_torch.device import seed_words
 from mbrl_tpu_torch.models import fast_rollout
 from mbrl_tpu_torch.types import RewardFn, TermFn
+from mbrl_tpu_torch.util import profiling
 
 
 class ModelEnv:
@@ -90,6 +91,7 @@ class ModelEnv:
             return model_state
         return {**model_state, "sharding": self.particle_sharding}
 
+    @profiling.span("ModelEnv.step")
     def step(
         self,
         state: Dict[str, Any],

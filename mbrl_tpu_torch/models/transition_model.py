@@ -19,6 +19,7 @@ import torch
 from mbrl_tpu_torch.ops import normalizer as nrm
 from mbrl_tpu_torch.ops.tree import tree_map
 from mbrl_tpu_torch.types import TransitionBatch
+from mbrl_tpu_torch.util import profiling
 
 _PARAMS_FNAME = "model.pkl"
 
@@ -112,6 +113,7 @@ class TransitionRewardModel:
         model_in = np.concatenate([obs, act], axis=-1)
         return {**state, "normalizer": nrm.update_stats_host(state["normalizer"], model_in)}
 
+    @profiling.span("TransitionRewardModel._model_input")
     def _model_input(
         self, state: Dict[str, Any], obs: torch.Tensor, act: torch.Tensor
     ) -> torch.Tensor:

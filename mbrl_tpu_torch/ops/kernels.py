@@ -14,7 +14,8 @@ K3    :func:`fused_ensemble_mlp`          equal-shard forward, raw head
 
 Dispatch depends only on where the tensors live: a CPU tensor goes through the
 plain version; a CUDA tensor launches the kernel or raises (no fallback). Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its kernel launches in ``<wrapper>.launches``, K3 also by route
+in ``fused_ensemble_mlp.route_launches`` (:func:`launch_counts`).
 
 The weight stack is packed once per rollout (:func:`pack_mlp`): one (E, n_w)
 tensor holding every product's (d_in, d_out) block row-major, in f32 or bf16,
@@ -58,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from mbrl_tpu_torch.device import seed_words
+from mbrl_tpu_torch.util.profiling import annotate
 
 # compile-time activation codes of csrc/common.cuh
 ACTIVATION_CODES: Dict[str, int] = {
@@ -962,42 +964,46 @@ def fused_ensemble_mlp(
     or model state). On the wide route K3 keeps a tile's activations in
     shared memory where ``WideTileLayout.k3_resident`` holds, else in a
     scratch in device memory."""
-    if not _dispatch(x):
-        return fused_ensemble_mlp_plain(x, stack)
-    from mbrl_tpu_torch.ops.build import load_library
+    with annotate("fused_ensemble_mlp"):
+        if not _dispatch(x):
+            return fused_ensemble_mlp_plain(x, stack)
+        from mbrl_tpu_torch.ops.build import load_library
 
-    e, rows, din = x.shape
-    _check_f32(x=x)
-    _check_cuda(x.device, x=x)
-    _check_stack(stack, x.device)
-    if e != stack.num_members or din != stack.dims[0] or rows < 1:
-        raise ValueError(f"x {tuple(x.shape)} does not match stack dims {stack.dims} (E={stack.num_members})")
-    tiles = _check_tiles(stack, tiles, x.device)
-    out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
-    lib = load_library()
-    act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
-    head = (x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(), _dims_arg(stack))
-    if not isinstance(tiles.layout, WideTileLayout):
-        route = k3_route(rows, e, sm_count(x.device), stack.low_precision)
-        blocks = k3_blocks(route, rows, e, sm_count(x.device))
-        tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
-        code = lib.mbrl_ensemble_mlp(*head, *tail, stack.ws.data_ptr(), K3_ROUTES.index(route),
-                                     _stream(x.device))
-    else:
-        blocks = persistent_blocks(rows, e, sm_count(x.device))
-        tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
-        dims = _device_dims(stack.dims, x.device).data_ptr()
-        if tiles.layout.k3_resident:  # no scratch: the activations stay in shared memory
-            code = lib.mbrl_ensemble_mlp_wide(*head, dims, *tail, None, 0,
-                                              K3_WIDE_ROUTES.index("smem"), _stream(x.device))
+        e, rows, din = x.shape
+        _check_f32(x=x)
+        _check_cuda(x.device, x=x)
+        _check_stack(stack, x.device)
+        if e != stack.num_members or din != stack.dims[0] or rows < 1:
+            raise ValueError(f"x {tuple(x.shape)} does not match stack dims {stack.dims} (E={stack.num_members})")
+        tiles = _check_tiles(stack, tiles, x.device)
+        out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
+        lib = load_library()
+        act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
+        head = (x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(), _dims_arg(stack))
+        if not isinstance(tiles.layout, WideTileLayout):
+            route = k3_route(rows, e, sm_count(x.device), stack.low_precision)
+            blocks = k3_blocks(route, rows, e, sm_count(x.device))
+            tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
+            code = lib.mbrl_ensemble_mlp(*head, *tail, stack.ws.data_ptr(), K3_ROUTES.index(route),
+                                         _stream(x.device))
         else:
-            scratch = _wide_scratch(tiles.layout, x.device, blocks)
-            code = lib.mbrl_ensemble_mlp_wide(*head, dims, *tail, scratch.data_ptr(),
-                                              scratch.numel(), K3_WIDE_ROUTES.index("scratch"),
-                                              _stream(x.device))
-    _raise_on_error(code, "fused_ensemble_mlp")
-    fused_ensemble_mlp.launches += 1
-    return out
+            blocks = persistent_blocks(rows, e, sm_count(x.device))
+            tail = (stack.num_products, e, rows, blocks, act, low, tiles.layout.member_elems)
+            dims = _device_dims(stack.dims, x.device).data_ptr()
+            if tiles.layout.k3_resident:  # no scratch: the activations stay in shared memory
+                route = "smem"
+                code = lib.mbrl_ensemble_mlp_wide(*head, dims, *tail, None, 0,
+                                                  K3_WIDE_ROUTES.index(route), _stream(x.device))
+            else:
+                route = "scratch"
+                scratch = _wide_scratch(tiles.layout, x.device, blocks)
+                code = lib.mbrl_ensemble_mlp_wide(*head, dims, *tail, scratch.data_ptr(),
+                                                  scratch.numel(), K3_WIDE_ROUTES.index(route),
+                                                  _stream(x.device))
+        _raise_on_error(code, "fused_ensemble_mlp")
+        fused_ensemble_mlp.launches += 1
+        fused_ensemble_mlp.route_launches[route] += 1
+        return out
 
 
 def fused_ensemble_mlp_gaussian(
@@ -1133,12 +1139,20 @@ def fused_rollout_returns(
 KERNEL_WRAPPERS = (fused_rollout_returns, fused_ensemble_mlp_gaussian, fused_ensemble_mlp)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
+fused_ensemble_mlp.route_launches = dict.fromkeys(K3_ROUTES + K3_WIDE_ROUTES, 0)
 
 
 def reset_launch_counts() -> None:
     for w in KERNEL_WRAPPERS:
         w.launches = 0
+    routes = fused_ensemble_mlp.route_launches
+    routes.update(dict.fromkeys(routes, 0))
 
 
 def launch_counts() -> Dict[str, int]:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    """Each wrapper's launches, and K3's by route under
+    ``fused_ensemble_mlp.<route>`` (:data:`K3_ROUTES`, :data:`K3_WIDE_ROUTES`)."""
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    counts.update({f"fused_ensemble_mlp.{route}": n
+                   for route, n in fused_ensemble_mlp.route_launches.items()})
+    return counts

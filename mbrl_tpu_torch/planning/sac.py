@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.ops.tree import tree_map
 from mbrl_tpu_torch.planning.core import Agent
+from mbrl_tpu_torch.util import profiling
 from mbrl_tpu_torch.util.device_buffer import DeviceReplayBuffer, uniform_indices
 
 LOG_SIG_MAX = 2.0
@@ -60,6 +61,7 @@ class GaussianPolicy(nn.Module):
         self.mean_linear = nn.Linear(hidden_size, act_dim)
         self.log_std_linear = nn.Linear(hidden_size, act_dim)
 
+    @profiling.span("GaussianPolicy.forward")
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         x = F.relu(self.linear2(F.relu(self.linear1(obs))))
         log_std = torch.clamp(self.log_std_linear(x), LOG_SIG_MIN, LOG_SIG_MAX)
@@ -220,6 +222,7 @@ class SAC:
         mean_action = torch.tanh(mean) * self.action_scale + self.action_bias
         return action, logp, mean_action
 
+    @profiling.span("SAC.act_tensor")
     def act_tensor(self, policy: nn.Module, obs: torch.Tensor, generator: torch.Generator,
                    sample: bool = True) -> torch.Tensor:
         with torch.no_grad():

@@ -16,6 +16,7 @@ import torch
 
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
 from mbrl_tpu_torch.types import TransitionBatch
+from mbrl_tpu_torch.util import profiling
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -105,6 +106,7 @@ class DeviceReplayBuffer:
         state.num_stored.copy_(torch.clamp(state.num_stored + n, max=self.capacity))
         return state
 
+    @profiling.span("DeviceReplayBuffer.add_batch_masked")
     def add_batch_masked(
         self, state: DeviceBufferState, obs, act, next_obs, reward, mask, valid
     ) -> DeviceBufferState:

@@ -5,13 +5,16 @@
     region into ``log_dir`` (open it in Perfetto or ``chrome://tracing``);
   - :func:`annotate` — a named range (``torch.profiler.record_function``) that
     attributes the enclosed work to a framework phase (plan / model-train /
-    sac-update / rollout);
+    sac-update / rollout), or to a layer of the imagined rollout; with no
+    profiler recording it costs one flag check and records nothing;
+  - :func:`span` — the same range around every call of a function;
   - :class:`StepTimer` — wall-clock phase timer with summary statistics, for
     loops where a full trace is too heavy.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import pathlib
 import time
@@ -20,6 +23,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from mbrl_tpu_torch.ops.tree import tree_leaves_with_path
 
@@ -46,9 +50,35 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         prof.export_chrome_trace(str(out_dir / f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named range attributing enclosed host and device work to a framework phase."""
+    """Named range attributing enclosed host and device work to a framework
+    phase. While a profiler records (``torch.profiler``, ``emit_nvtx``), a
+    ``torch.profiler.record_function`` on the profiler's timeline, the clock
+    its device records are aligned to; otherwise a shared no-op context: no
+    ``RecordFunction``, no dispatcher call."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
     return torch.profiler.record_function(name)
+
+
+def span(name: str):
+    """Decorator: every call of the function is the range ``name``
+    (:func:`annotate`); off the profiler, one flag check and one call."""
+
+    def decorate(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:  # annotate's check, inlined
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return spanned
+
+    return decorate
 
 
 def _synchronize(block) -> None:

@@ -184,4 +184,7 @@ def test_launch_counters_count_only_kernel_launches():
     tk.fused_ensemble_mlp(torch.zeros((E, 8, IN)), _stack(ws, bs, hw, hb, "float32"))
     assert tk.launch_counts() == {
         "fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0, "fused_ensemble_mlp": 0,
+        "fused_ensemble_mlp.tile": 0, "fused_ensemble_mlp.pair": 0,
+        "fused_ensemble_mlp.cluster": 0, "fused_ensemble_mlp.scratch": 0,
+        "fused_ensemble_mlp.smem": 0,
     }

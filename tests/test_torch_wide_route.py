@@ -123,8 +123,13 @@ def test_wrappers_reach_the_entry_of_their_route(fake_card, name):
         "mbrl_ensemble_mlp" + suffix, "mbrl_ensemble_mlp_gaussian" + suffix,
         "mbrl_rollout_returns" + suffix,
     ]
+    # K3 at 100 rows a member: one tile a block on the chain; on the wide
+    # route the resident activations up to 512 columns, else the scratch
+    k3_route = "tile" if not wide else "scratch" if name == "w1024" else "smem"
     assert tk.launch_counts() == {"fused_rollout_returns": 1, "fused_ensemble_mlp_gaussian": 1,
-                                  "fused_ensemble_mlp": 1}
+                                  "fused_ensemble_mlp": 1, **{
+                                      f"fused_ensemble_mlp.{r}": int(r == k3_route)
+                                      for r in tk.K3_ROUTES + tk.K3_WIDE_ROUTES}}
     if wide:  # each scratch holds its grid's blocks: K3 persistent, K2 (tiles, E), K1 tiles
         (_, k3), (_, k2), (_, k1) = fake_card.calls
         lay = tk.WideTileLayout(dims, False)

@@ -323,8 +323,11 @@ def test_the_wide_entries_get_wide_tiles_and_their_scratch(fake_card, name, dt):
     assert a2[-2] == 2 * 5 * lay.block_bytes()  # (tiles, E) blocks
     assert a1[6] == tiles1.w.data_ptr() and a1[24] == lay1.member_elems
     assert a1[-2] == (batch // 64) * lay1.block_bytes(17)  # one block per row tile
+    k3_route = "smem" if lay.k3_resident else "scratch"
     assert tk.launch_counts() == {"fused_rollout_returns": 1, "fused_ensemble_mlp_gaussian": 1,
-                                  "fused_ensemble_mlp": 1}
+                                  "fused_ensemble_mlp": 1, **{
+                                      f"fused_ensemble_mlp.{r}": int(r == k3_route)
+                                      for r in tk.K3_ROUTES + tk.K3_WIDE_ROUTES}}
 
 
 @pytest.mark.parametrize("rows,members", [(1600, 5), (20_000, 5), (100, 5), (1, 1)],
