@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase below
     python3 chip_smoke.py --published-e   # config E alone at its published 5,000 steps
     python3 chip_smoke.py --published-m   # config M alone at its published 5,000 steps
+    python3 chip_smoke.py --policy        # the SAC policy kernel alone
 
 Builds the CUDA kernels from ``mbrl_tpu_torch/csrc/`` (one nvcc per source, all
 at once): K1, K2 and K3 on the tensor-core chain (``tc_chain.cu``,
@@ -1868,6 +1869,77 @@ def mbpo_kernel_checks():
 
 
 # --------------------------------------------------------------------------- #
+# The SAC policy kernel (csrc/policy_mlp.cu) at MBPO's rollout batch
+# --------------------------------------------------------------------------- #
+# (in, hidden, act) of the benchmark's policies: Walker2d and truncated-obs
+# Humanoid at 1,024 wide, HalfCheetah at 512 (mbrl-lib's mbpo_*.yaml)
+POLICY_WIDTHS = {"walker": (17, 1024, 6), "humanoid": (45, 1024, 17), "halfcheetah": (17, 512, 6)}
+POLICY_ROWS = 100_000
+# largest |kernel - plain| over the outputs, relative to max(1, |plain|): the
+# same 3xTF32 arithmetic summed in another order (a few f32 roundings)
+POLICY_TOL = 2e-6
+
+
+def policy_kernel_checks():
+    """The policy kernel against its plain version at 100,000 and 100,003
+    rows for the three widths, and at the dispatch threshold's edge; at
+    100,000 rows its time, bound, the plain version's and the library's
+    (the ``nn.Linear`` forward, cuBLAS's f32 SGEMMs and PyTorch's ReLU
+    passes: the route the policy took before the kernel)."""
+    import torch.nn.functional as F
+
+    from mbrl_tpu_torch.ops import kernels as K
+    from mbrl_tpu_torch.planning.sac import GaussianPolicy
+
+    def linear_forward(p, x):
+        h = F.relu(p.linear2(F.relu(p.linear1(x))))
+        return p.mean_linear(h), torch.clamp(p.log_std_linear(h), -20.0, 2.0)
+
+    results = {}
+    for name, (din, hidden, act) in POLICY_WIDTHS.items():
+        torch.manual_seed(SEED + 40)
+        p = GaussianPolicy(din, act, hidden).cuda()
+        with torch.no_grad():
+            for layer in p._layers():
+                layer.bias.normal_(0.0, 0.1)
+        pack = p.packed()
+        row = {}
+        for rows in (POLICY_ROWS, POLICY_ROWS + 3, K.POLICY_KERNEL_ROWS):
+            x = torch.randn((rows, din), generator=torch.Generator().manual_seed(rows)).cuda()
+            with torch.no_grad():
+                got = K.fused_policy_mlp(x, pack)
+                sync("cuda")
+                ref = K.fused_policy_mlp_plain(x, pack)
+                lin = linear_forward(p, x)
+            err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                      for a, b in zip(got, ref))
+            err_lin = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                          for a, b in zip(got, lin))
+            check(err <= POLICY_TOL and err_lin <= POLICY_TOL,
+                  f"policy {name} at {rows} rows: kernel vs plain {err}, vs nn.Linear {err_lin}")
+            row[f"err_{rows}"], row[f"err_linear_{rows}"] = err, err_lin
+        # the dispatch at the threshold's edge
+        for rows, launches in ((K.POLICY_KERNEL_ROWS, 1), (K.POLICY_KERNEL_ROWS - 1, 0)):
+            K.reset_launch_counts()
+            with torch.no_grad():
+                p(torch.zeros((rows, din), device="cuda"))
+            check(K.launch_counts()["fused_policy_mlp"] == launches,
+                  f"policy {name}: {rows} rows gave {K.launch_counts()}")
+        x = torch.randn((POLICY_ROWS, din), generator=torch.Generator().manual_seed(0)).cuda()
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: K.fused_policy_mlp(x, pack), 20)
+            row["plain_ms"] = time_ms(lambda: K.fused_policy_mlp_plain(x, pack), 5)
+            row["library_ms"] = time_ms(lambda: linear_forward(p, x), 20)
+        macs = din * hidden + hidden * hidden + hidden * 2 * act
+        nbytes = 4 * (POLICY_ROWS * (din + 2 * act) + macs + 2 * hidden + 2 * act)
+        row["bound_ms"], row["bound_by"] = bound(2.0 * POLICY_ROWS * macs, nbytes, False)
+        row["share"] = row["bound_ms"] / row["ms"]
+        results[name] = row
+    print("policy kernel (100,000 rows): " + json.dumps(results), flush=True)
+    return results
+
+
+# --------------------------------------------------------------------------- #
 # Config PN: PlaNet at dynamics_model/planet.yaml's full width
 # --------------------------------------------------------------------------- #
 # the cuts: two episodes (the first a test episode, the second with
@@ -2969,12 +3041,14 @@ def mesh_one(device: str = "cuda", config_e=None, config_m=None, config_pn=None)
     out = {"mesh": dict(pctx.mesh.shape)}
 
     def both(run, what):
-        """run(pctx or None) twice, counted; equal results and launches."""
+        """run(pctx or None) twice, counted; equal results and launches (the
+        policy kernel's packs left out: the second run reuses the first's)."""
         got = []
         for ctx in (None, pctx):
             K.reset_launch_counts()
             result = run(ctx)
-            got.append((result, K.launch_counts()))
+            got.append((result, {k: n for k, n in K.launch_counts().items()
+                                 if k != "fused_policy_mlp.repacks"}))
         (a, ca), (b, cb) = got
         check(ca == cb, f"MESH-1 {what}: launches {ca} unsharded, {cb} on the mesh")
         check(_trees_equal(a, b), f"MESH-1 {what}: the mesh's result differs")
@@ -3268,6 +3342,8 @@ def main(argv=None) -> int:
     parser.add_argument("--published-m", action="store_true",
                         help="after the build, run config M alone at its published num_steps "
                              "(5,000) instead of the default phases")
+    parser.add_argument("--policy", action="store_true",
+                        help="after the build, check and time the SAC policy kernel alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA device",
@@ -3283,11 +3359,13 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({build.library_path().name}"
           f"{', already built' if cached else ''})", flush=True)
-    if args.published_e or args.published_m:
+    if args.published_e or args.published_m or args.policy:
         if args.published_e:
             published_config_e()
-        else:
+        elif args.published_m:
             published_config_m()
+        else:
+            policy_kernel_checks()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3310,6 +3388,7 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
     print("width sweep: " + json.dumps(width_sweep()), flush=True)
     results.update(wide_kernel_checks())
     results.update(mbpo_kernel_checks())
+    policy_kernel_checks()
 
     agree = {name: agreement(name, pop=40) for name in ("A", "B", "D")}
     print("agreement card vs cpu (identical members): " + json.dumps(agree), flush=True)
@@ -3407,6 +3486,10 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
     print("config M-HC: " + json.dumps(mhc) + f"  launches {counts_mhc}", flush=True)
     want_mhc = only_k3(sum(MHC_HORIZONS))
     check(counts_mhc == want_mhc, f"config M-HC: expected launches {want_mhc}, got {counts_mhc}")
+    # every rollout step's policy call on the policy kernel, one pack
+    policy_mhc = (K.fused_policy_mlp.launches, K.fused_policy_mlp.repacks)
+    check(policy_mhc == (sum(MHC_HORIZONS), 1),
+          f"config M-HC: policy kernel launches and packs {policy_mhc}")
     print("config M-HC SAC update, card vs CPU: " + json.dumps(sac_update_card_vs_cpu()), flush=True)
 
     # config PN: PlaNet's training, posterior updates and latent planning

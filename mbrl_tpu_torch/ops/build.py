@@ -131,6 +131,10 @@ SIGNATURES = {
         _U, _U, _P, _P, _P, _P, _P, _P, _P, _P, _P, _DIMS, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _LL, _I, _P, _LL, _P,
     ],
+    # the SAC policy (csrc/policy_mlp.cu): x, pack_policy's W1 tiles, b1, its
+    # W2 tiles, b2, its head tiles, the heads' biases, the h1 and partial-heads
+    # scratches, mean, log_std; rows, in, hidden, act, the main kernel's grid
+    "mbrl_policy_mlp": [_P] * 11 + [_I] * 5 + [_P],
     # K1 (1) or K2 (0), host dims, products, K1's carry floats, activation,
     # bf16, cluster, and the count out
     "mbrl_wide_max_active_clusters": [_I, _DIMS, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],

@@ -47,6 +47,13 @@ product (``WideTileLayout.k3_resident``, :func:`k3_columns`,
 chain K3 takes one of three routes by shape (:func:`k3_route`): one tile a
 block in one wave, two tiles a block past it, a cluster of blocks a member
 at a few rows a member.
+
+Beside them, a kernel that replaces no Pallas kernel: the SAC policy's
+forward (:func:`fused_policy_mlp`, ``csrc/policy_mlp.cu``), which the JAX
+package leaves to XLA, for MBPO's imagined rollout, where the 1,024-wide
+policy on 100,000 rows set the pace. ``GaussianPolicy.forward`` takes it for
+large batches without grad (:data:`POLICY_KERNEL_ROWS`); its weights are
+packed once per weight state (:func:`pack_policy`).
 """
 from __future__ import annotations
 
@@ -917,6 +924,12 @@ def _dispatch(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card, where a caller that picks its route by
+    shape may take a kernel."""
+    return t.device.type == "cuda"
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """The card's streaming multiprocessors (132 on an H100)."""
@@ -1136,10 +1149,205 @@ def fused_rollout_returns(
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The SAC policy's forward (csrc/policy_mlp.cu)
+# --------------------------------------------------------------------------- #
+# the policy kernel's tile: rows (a cluster of two blocks, 128 rows each,
+# that share each weight chunk), h2 columns, and the K rows of one ring
+# chunk; its limits: linear1's K, the hidden width (h2's biases in shared
+# memory) and the padded heads (a multiple of POLICY_HEAD_STEP, the kernel's
+# template widths)
+POLICY_ROWS = 256
+POLICY_CLUSTER = 2
+POLICY_COLS = 128
+POLICY_CHUNK = 16
+POLICY_MAX_IN = 64
+POLICY_MAX_HIDDEN = 2048
+POLICY_HEAD_MAX = 64
+POLICY_HEAD_STEP = 16
+# Rows from which GaussianPolicy.forward takes the kernel: one 256-row tile
+# for each of an H100's 132 SMs (33,792 rows). The kernel is built for
+# MBPO's 100,000-row rollouts, where each SM's weight chunks serve 256 rows
+# at a time; its three launches and the padding to 256 rows are a fixed cost
+# that only many tiles amortise. SAC's update (batch 256) and an acting step
+# (one row) stay far below it.
+POLICY_KERNEL_ROWS = 132 * POLICY_ROWS
+# The heads' A fragment is h2's accumulators as they lie: a k-step of the
+# heads' product takes the columns of an 8-column group in this order
+# (csrc/policy_mlp.cu, head_fragment), and pack_policy orders the heads'
+# rows to match.
+HEAD_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+# The other way round for linear1, whose accumulators the kernel stores as
+# h1's A fragments: column p of each 8 of W1's packed tiles is h1's column
+# LINEAR1_ORDER[p] (accumulator columns 2t, 2t + 1 are h1's t, t + 4).
+LINEAR1_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyPack:
+    """A Gaussian policy's weights in the policy kernel's layout
+    (:func:`pack_policy`): linear1's and linear2's tf32 hi/lo tiles (linear1's
+    columns in :data:`LINEAR1_ORDER`), the heads ``[mean | log_std]`` as hi/lo
+    tiles with their rows in :data:`HEAD_ORDER`, each bias as f32."""
+
+    w1: torch.Tensor  # [column tile][hi | lo][core matrices of (in_pad, 128)]
+    b1: torch.Tensor  # (hidden,)
+    w2: torch.Tensor  # [column tile][chunk][hi | lo][core matrices of (16, 128)]
+    b2: torch.Tensor  # (hidden,)
+    wh: torch.Tensor  # [column tile][half][hi | lo][core matrices of (64, head_pad)]
+    bh: torch.Tensor  # (2 act,)
+    din: int
+    act: int
+
+    @property
+    def hidden(self) -> int:
+        return self.b1.shape[0]
+
+    @property
+    def in_pad(self) -> int:
+        return _round_up(self.din, 8)
+
+    @property
+    def head_pad(self) -> int:
+        return _round_up(2 * self.act, POLICY_HEAD_STEP)
+
+    @property
+    def col_tiles(self) -> int:
+        return self.hidden // POLICY_COLS
+
+
+def policy_supported(din: int, hidden: int, act: int) -> bool:
+    """Whether the policy kernel takes a policy of these widths."""
+    return (1 <= din <= POLICY_MAX_IN and hidden % POLICY_COLS == 0
+            and POLICY_COLS <= hidden <= POLICY_MAX_HIDDEN and 1 <= 2 * act <= POLICY_HEAD_MAX)
+
+
+def _tf32_pair(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3xTF32's split: tf32 hi (:func:`rna_tf32`) and the tf32 of the rest."""
+    hi = rna_tf32(w)
+    return hi, rna_tf32(w - hi)
+
+
+def pack_policy(w1, b1, w2, b2, wm, bm, ws, bs) -> PolicyPack:
+    """Pack a Gaussian policy's weights (``nn.Linear`` layouts: (out, in)
+    weights) for :func:`fused_policy_mlp`; counted in
+    ``fused_policy_mlp.repacks``. linear2's W2^T is cut into (column tile,
+    16-row chunk) blocks, each the hi then the lo copy in ``wgmma``'s core
+    matrices (K-major, as :func:`pack_chain`'s); linear1's W1^T, its K padded
+    to 8 and its columns in :data:`LINEAR1_ORDER` within each 8, into
+    column-tile blocks, and the heads' (hidden, 2 act) matrix, padded to
+    ``head_pad`` columns and its rows in :data:`HEAD_ORDER` within each 8,
+    into (column tile, 64-row half) blocks, the same way."""
+    hidden, din = w1.shape
+    act = wm.shape[0]
+    if not policy_supported(din, hidden, act):
+        raise ValueError(f"the policy kernel does not take widths in {din}, hidden {hidden}, "
+                         f"act {act}")
+    with torch.no_grad():
+        f32 = lambda t: t.detach().float()  # noqa: E731
+        nt, nc = hidden // POLICY_COLS, hidden // POLICY_CHUNK
+        kp = _round_up(din, 8)
+        w1t = F.pad(f32(w1).t(), (0, 0, 0, kp - din))
+        w1t = w1t.reshape(kp, hidden // 8, 8)[:, :, list(LINEAR1_ORDER)]
+        w1p = torch.stack(_tf32_pair(w1t.reshape(kp, hidden)))  # (copy, K, N)
+        w1p = w1p.reshape(2, kp // 4, 4, nt, POLICY_COLS // 8, 8).permute(3, 0, 1, 4, 5, 2)
+        w2p = torch.stack(_tf32_pair(f32(w2).t()))  # (copy, K, N)
+        w2p = w2p.reshape(2, nc, 4, 4, nt, POLICY_COLS // 8, 8).permute(4, 1, 0, 2, 5, 6, 3)
+        nh = _round_up(2 * act, POLICY_HEAD_STEP)
+        wht = F.pad(torch.cat([f32(wm), f32(ws)]).t(), (0, nh - 2 * act))  # (hidden, nh)
+        wht = wht.reshape(hidden // 8, 8, nh)[:, list(HEAD_ORDER)].reshape(hidden, nh)
+        whp = torch.stack(_tf32_pair(wht)).reshape(2, nt, 2, 16, 4, nh // 8, 8)
+        whp = whp.permute(1, 2, 0, 3, 5, 6, 4)
+        pack = PolicyPack(w1p.contiguous().reshape(-1), f32(b1).contiguous(),
+                          w2p.contiguous().reshape(-1), f32(b2).contiguous(),
+                          whp.contiguous().reshape(-1), torch.cat([f32(bm), f32(bs)]), din, act)
+    fused_policy_mlp.repacks += 1
+    return pack
+
+
+def unpack_policy(pack: PolicyPack) -> Tuple[torch.Tensor, ...]:
+    """linear1's W1^T (in, hidden), linear2's W2^T (hidden, hidden) and the
+    heads' (hidden, head_pad), each as (hi, lo), out of the pack's tiles
+    (linear1's columns and the heads' rows back in order)."""
+    h, nt, nh, kp = pack.hidden, pack.col_tiles, pack.head_pad, pack.in_pad
+    w1 = pack.w1.reshape(nt, 2, kp // 4, POLICY_COLS // 8, 8, 4).permute(1, 2, 5, 0, 3, 4)
+    w1 = w1.reshape(2, kp, h // 8, 8)
+    lin1 = torch.empty_like(w1)
+    lin1[:, :, :, list(LINEAR1_ORDER)] = w1
+    lin1 = lin1.reshape(2, kp, h)[:, : pack.din]
+    w2 = pack.w2.reshape(nt, h // POLICY_CHUNK, 2, 4, POLICY_COLS // 8, 8, 4)
+    w2 = w2.permute(2, 1, 3, 6, 0, 4, 5).reshape(2, h, h)
+    wh = pack.wh.reshape(nt, 2, 2, 16, nh // 8, 8, 4).permute(2, 0, 1, 3, 6, 4, 5)
+    wh = wh.reshape(2, h // 8, 8, nh)
+    heads = torch.empty_like(wh)
+    heads[:, :, list(HEAD_ORDER)] = wh
+    heads = heads.reshape(2, h, nh)
+    return lin1[0], lin1[1], w2[0], w2[1], heads[0], heads[1]
+
+
+def fused_policy_mlp_plain(x: torch.Tensor, pack: PolicyPack) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The policy kernel's function in plain PyTorch, its arithmetic repeated:
+    linear1 and linear2 as 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi), each
+    with its bias and ReLU; the heads per 128-column tile of h2 as 3xTF32,
+    the tiles' partial sums added in column order, then the heads' biases
+    and log_std's clamp. x (rows, in) → (mean, log_std), each (rows, act)."""
+    w1_hi, w1_lo, w2_hi, w2_lo, wh_hi, wh_lo = unpack_policy(pack)
+    x_hi, x_lo = _tf32_pair(x.float())
+    h1 = F.relu(x_lo @ w1_hi + x_hi @ w1_lo + x_hi @ w1_hi + pack.b1)
+    h1_hi, h1_lo = _tf32_pair(h1)
+    h2 = F.relu(h1_lo @ w2_hi + h1_hi @ w2_lo + h1_hi @ w2_hi + pack.b2)
+    heads = torch.zeros((x.shape[0], pack.head_pad), dtype=torch.float32, device=x.device)
+    for n in range(pack.col_tiles):
+        cols = slice(n * POLICY_COLS, (n + 1) * POLICY_COLS)
+        g_hi, g_lo = _tf32_pair(h2[:, cols])
+        heads = heads + (g_lo @ wh_hi[cols] + g_hi @ wh_lo[cols] + g_hi @ wh_hi[cols])
+    heads = heads[:, : 2 * pack.act] + pack.bh
+    return heads[:, : pack.act], heads[:, pack.act:].clamp(-20.0, 2.0)
+
+
+def fused_policy_mlp(x: torch.Tensor, pack: PolicyPack) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SAC Gaussian policy's forward (``GaussianPolicy.forward``'s
+    function): x (rows, in) → (mean, log_std), each (rows, act), log_std
+    clamped to [-20, 2]. On the card ``csrc/policy_mlp.cu``'s three launches
+    (linear1; linear2 and the heads' partial sums; the sums in order), every
+    product in 3xTF32; ``pack`` is :func:`pack_policy`'s, packed once
+    per weight state."""
+    if not _dispatch(x):
+        return fused_policy_mlp_plain(x, pack)
+    from mbrl_tpu_torch.ops.build import load_library
+
+    _check_f32(x=x)
+    _check_cuda(x.device, x=x, w1=pack.w1, b1=pack.b1, w2=pack.w2, b2=pack.b2, wh=pack.wh,
+                bh=pack.bh)
+    if x.dim() != 2 or x.shape[1] != pack.din or x.shape[0] < 1:
+        raise ValueError(f"x {tuple(x.shape)} does not match the policy's input {pack.din}")
+    rows, dev = x.shape[0], x.device
+    rows_pad = _round_up(rows, POLICY_ROWS)
+    h1 = torch.empty(rows_pad * pack.hidden, dtype=torch.float32, device=dev)
+    part = torch.empty((pack.col_tiles, rows_pad, 2 * pack.act), dtype=torch.float32, device=dev)
+    mean = torch.empty((rows, pack.act), dtype=torch.float32, device=dev)
+    log_std = torch.empty((rows, pack.act), dtype=torch.float32, device=dev)
+    blocks = POLICY_CLUSTER * min(rows_pad // POLICY_ROWS * pack.col_tiles,
+                                  sm_count(dev) // POLICY_CLUSTER)
+    code = load_library().mbrl_policy_mlp(
+        x.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(), pack.w2.data_ptr(),
+        pack.b2.data_ptr(), pack.wh.data_ptr(), pack.bh.data_ptr(), h1.data_ptr(),
+        part.data_ptr(), mean.data_ptr(), log_std.data_ptr(), rows, pack.din, pack.hidden,
+        pack.act, blocks, _stream(dev))
+    _raise_on_error(code, "fused_policy_mlp")
+    fused_policy_mlp.launches += 1
+    return mean, log_std
+
+
 KERNEL_WRAPPERS = (fused_rollout_returns, fused_ensemble_mlp_gaussian, fused_ensemble_mlp)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 fused_ensemble_mlp.route_launches = dict.fromkeys(K3_ROUTES + K3_WIDE_ROUTES, 0)
+# the policy kernel's launches, its packs, and the policy calls that took
+# the nn.Linear route (GaussianPolicy.forward counts them here)
+POLICY_COUNTERS = ("launches", "repacks", "linear")
+for _c in POLICY_COUNTERS:
+    setattr(fused_policy_mlp, _c, 0)
 
 
 def reset_launch_counts() -> None:
@@ -1147,12 +1355,20 @@ def reset_launch_counts() -> None:
         w.launches = 0
     routes = fused_ensemble_mlp.route_launches
     routes.update(dict.fromkeys(routes, 0))
+    for c in POLICY_COUNTERS:
+        setattr(fused_policy_mlp, c, 0)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Each wrapper's launches, and K3's by route under
-    ``fused_ensemble_mlp.<route>`` (:data:`K3_ROUTES`, :data:`K3_WIDE_ROUTES`)."""
+    """Each wrapper's launches, K3's by route under
+    ``fused_ensemble_mlp.<route>`` (:data:`K3_ROUTES`, :data:`K3_WIDE_ROUTES`),
+    and the policy kernel's launches (``fused_policy_mlp``), packs
+    (``fused_policy_mlp.repacks``) and the policy calls that took the
+    ``nn.Linear`` route (``fused_policy_mlp.linear``)."""
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     counts.update({f"fused_ensemble_mlp.{route}": n
                    for route, n in fused_ensemble_mlp.route_launches.items()})
+    counts["fused_policy_mlp"] = fused_policy_mlp.launches
+    counts.update({f"fused_policy_mlp.{c}": getattr(fused_policy_mlp, c)
+                   for c in POLICY_COUNTERS[1:]})
     return counts

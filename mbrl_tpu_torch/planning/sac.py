@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mbrl_tpu_torch.device import DeviceLike, resolve_device
+from mbrl_tpu_torch.ops import kernels
 from mbrl_tpu_torch.ops.tree import tree_map
 from mbrl_tpu_torch.planning.core import Agent
 from mbrl_tpu_torch.util import profiling
@@ -52,7 +53,16 @@ def normal(generator: torch.Generator, shape: Sequence[int], device: torch.devic
 
 
 class GaussianPolicy(nn.Module):
-    """Two ReLU layers, then a mean and a log-std head (clipped)."""
+    """Two ReLU layers, then a mean and a log-std head (clipped).
+
+    One forward, two routes by what the call shows: on the card, without
+    grad and at :data:`kernels.POLICY_KERNEL_ROWS` rows or more (MBPO's
+    imagined rollout), the policy kernel (:func:`kernels.fused_policy_mlp`,
+    weights packed once per weight state, :meth:`packed`); every other call
+    (the SAC update, its next action at batch 256, an acting step, the CPU)
+    the ``nn.Linear`` layers, counted in ``fused_policy_mlp.linear``."""
+
+    _pack: Optional[Tuple[tuple, "kernels.PolicyPack"]] = None
 
     def __init__(self, num_inputs: int, act_dim: int, hidden_size: int):
         super().__init__()
@@ -61,8 +71,42 @@ class GaussianPolicy(nn.Module):
         self.mean_linear = nn.Linear(hidden_size, act_dim)
         self.log_std_linear = nn.Linear(hidden_size, act_dim)
 
+    def __getstate__(self):
+        # a copy (SACAgent's acting clone, a pickle) packs its own weights
+        state = dict(super().__getstate__())
+        state.pop("_pack", None)
+        return state
+
+    def _layers(self) -> Tuple[nn.Linear, ...]:
+        return self.linear1, self.linear2, self.mean_linear, self.log_std_linear
+
+    def takes_kernel(self, obs: torch.Tensor) -> bool:
+        """Whether :meth:`forward` runs ``obs`` through the policy kernel."""
+        return (kernels.on_card(obs) and not torch.is_grad_enabled() and obs.dtype == torch.float32
+                and obs.dim() >= 1 and obs.numel() >= kernels.POLICY_KERNEL_ROWS * obs.shape[-1]
+                and kernels.policy_supported(self.linear1.in_features,
+                                             self.linear1.out_features,
+                                             self.mean_linear.out_features))
+
+    def packed(self) -> "kernels.PolicyPack":
+        """The weights in the policy kernel's layout, packed again only when a
+        parameter was replaced or written in place (an optimizer step,
+        ``load_state_dict``): the cache is keyed on each parameter's
+        ``data_ptr()`` and ``_version``."""
+        params = [p for layer in self._layers() for p in (layer.weight, layer.bias)]
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if self._pack is None or self._pack[0] != key:
+            self._pack = (key, kernels.pack_policy(*params))
+        return self._pack[1]
+
     @profiling.span("GaussianPolicy.forward")
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if self.takes_kernel(obs):
+            lead = obs.shape[:-1]
+            mean, log_std = kernels.fused_policy_mlp(obs.reshape(-1, obs.shape[-1]).contiguous(),
+                                                     self.packed())
+            return mean.reshape(*lead, -1), log_std.reshape(*lead, -1)
+        kernels.fused_policy_mlp.linear += 1
         x = F.relu(self.linear2(F.relu(self.linear1(obs))))
         log_std = torch.clamp(self.log_std_linear(x), LOG_SIG_MIN, LOG_SIG_MAX)
         return self.mean_linear(x), log_std

@@ -327,7 +327,9 @@ def test_the_wide_entries_get_wide_tiles_and_their_scratch(fake_card, name, dt):
     assert tk.launch_counts() == {"fused_rollout_returns": 1, "fused_ensemble_mlp_gaussian": 1,
                                   "fused_ensemble_mlp": 1, **{
                                       f"fused_ensemble_mlp.{r}": int(r == k3_route)
-                                      for r in tk.K3_ROUTES + tk.K3_WIDE_ROUTES}}
+                                      for r in tk.K3_ROUTES + tk.K3_WIDE_ROUTES},
+                                  "fused_policy_mlp": 0, "fused_policy_mlp.repacks": 0,
+                                  "fused_policy_mlp.linear": 0}
 
 
 @pytest.mark.parametrize("rows,members", [(1600, 5), (20_000, 5), (100, 5), (1, 1)],
