@@ -5,6 +5,7 @@
     python3 chip_smoke.py --published-e   # config E alone at its published 5,000 steps
     python3 chip_smoke.py --published-m   # config M alone at its published 5,000 steps
     python3 chip_smoke.py --policy        # the SAC policy kernel alone
+    python3 chip_smoke.py --k3-head       # K3 with the Gaussian head alone
 
 Builds the CUDA kernels from ``mbrl_tpu_torch/csrc/`` (one nvcc per source, all
 at once): K1, K2 and K3 on the tensor-core chain (``tc_chain.cu``,
@@ -14,7 +15,9 @@ in ``wide_tc.cu``; K3's ``ensemble_mlp_wide_smem_kernel`` in
 in ``ensemble_mlp_wide.cu`` beyond). Holds each against its
 plain PyTorch version at the main paths' shapes (f32 and bf16; K3 at 8,000
 rows with a Gaussian and with a deterministic head, at 100,000 rows and at
-config M's 80,000 on its two-tile route, at one row a member on its cluster
+config M's 80,000 on its two-tile route (at 100,000 and 100,005 rows also
+reading its rows through a permutation and finishing the Gaussian head,
+``--k3-head``), at one row a member on its cluster
 route, and on each side of the routes' limits: 64 and 65 rows a member and
 1,700, an odd 27 tiles a member; K2, mean path and samples, at the shapes of configs B and
 E, of MPPI and of each of iCEM's populations; every activation at 200 and 300
@@ -1940,6 +1943,100 @@ def policy_kernel_checks():
 
 
 # --------------------------------------------------------------------------- #
+# K3 in the batch's order with the Gaussian head finished (mbrl_ensemble_mlp_head)
+# --------------------------------------------------------------------------- #
+# (model in, out) of the benchmark's models: MBPO-Walker2d and truncated-obs
+# Humanoid, 4 x 200 silu, 5 elites of 7, out = obs + reward
+K3_HEAD_WIDTHS = {"walker": (23, 18), "humanoid": (62, 46)}
+K3_HEAD_ROWS = (100_000, 100_005)  # 20,000 rows an elite; 20,001, a ragged last tile
+# largest |kernel - plain| over the outputs, relative to max(1, |plain|): 3xTF32
+# products against full f32 ones, the same head arithmetic
+K3_HEAD_TOL = 1e-6
+
+
+def k3_head_checks():
+    """K3 on its two-tile route reading its rows through a permutation and
+    finishing the Gaussian head (``fused_ensemble_mlp(..., perm=,
+    logvar_bounds=, noise=)``) against its plain version, at both widths and
+    both row counts, with and without noise; at 100,000 rows the times of the
+    raw K3, of K3 with the head, and of the PyTorch composition the head
+    replaces (gather, raw K3, bound, reshape, inverse gather, draw) on
+    ``GaussianMLP``'s own functions."""
+    from mbrl_tpu_torch.models import GaussianMLP
+    from mbrl_tpu_torch.ops import kernels as K
+
+    results = {}
+    for name, (din, out) in K3_HEAD_WIDTHS.items():
+        model = GaussianMLP(din, out, LAYERS, ENSEMBLE, HID, activation="silu",
+                            propagation_method="random_model", device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+        params = model.init(g)
+        for layer in params["layers"] + [params["head"]]:
+            layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=g, device="cuda")
+        params = model.set_elite(params, list(range(ELITES)))
+        cached = model.packed(params)
+        bounds = (cached.view["max_logvar"], cached.view["min_logvar"])
+        row = {}
+        for rows in K3_HEAD_ROWS:
+            x = torch.randn((rows, din), generator=g, device="cuda")
+            perm = torch.randperm(rows, generator=g, device="cuda")
+            noise = torch.randn((rows, out), generator=g, device="cuda")
+            xs = x.reshape(ELITES, rows // ELITES, din)
+            for sample in (True, False):
+                z = noise if sample else None
+                K.reset_launch_counts()
+                got = K.fused_ensemble_mlp(xs, cached.stack, tiles=cached.tiles, perm=perm,
+                                           logvar_bounds=bounds, noise=z)
+                sync("cuda")
+                check(K.launch_counts()["fused_ensemble_mlp.fused_head"] == 1,
+                      f"K3 head {name}: {K.launch_counts()}")
+                ref = K.fused_ensemble_mlp_head_plain(xs, cached.stack, perm, *bounds, z)
+                err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+                          for a, b in zip(got, ref) if b is not None)
+                check(err <= K3_HEAD_TOL,
+                      f"K3 head {name} at {rows} rows (noise {sample}): gap {err}")
+                row[f"gap_{rows}_{'drawn' if sample else 'mean'}"] = err
+            if rows != K3_HEAD_ROWS[0]:
+                continue
+            inv = torch.argsort(perm)
+            h = model._permute_rows(x, perm, ELITES)
+
+            def glue():
+                hp = model._permute_rows(x, perm, ELITES)
+                raw = K.fused_ensemble_mlp(hp, cached.stack, tiles=cached.tiles)
+                mean, lv = model._bound(cached.view, raw)
+                mean, lv = model._unpermute_rows(mean.reshape(rows, -1), lv.reshape(rows, -1),
+                                                 perm, inv)
+                return mean + torch.exp(0.5 * lv) * noise
+
+            def fused():
+                return K.fused_ensemble_mlp(xs, cached.stack, tiles=cached.tiles, perm=perm,
+                                            logvar_bounds=bounds, noise=noise)
+
+            row["raw_ms"] = time_graph_ms(
+                lambda: K.fused_ensemble_mlp(h, cached.stack, tiles=cached.tiles), 20)
+            # the same products, then PyTorch's head on the card: the epilogue's arithmetic alone
+            row["glue_gap"] = float(((fused()[0] - glue()).abs() / glue().abs().clamp(min=1.0)).max())
+            check(row["glue_gap"] <= K3_HEAD_TOL, f"K3 head {name}: against the glue {row['glue_gap']}")
+            row["head_ms"] = time_graph_ms(fused, 20)
+            ordered = torch.arange(rows, device="cuda")  # rows read and written in order
+            row["head_in_order_ms"] = time_graph_ms(
+                lambda: K.fused_ensemble_mlp(xs, cached.stack, tiles=cached.tiles, perm=ordered,
+                                             logvar_bounds=bounds, noise=noise), 20)
+            row["glue_ms"] = time_graph_ms(glue, 20)
+            row["head_eager_ms"] = time_ms(fused, 20)
+            row["glue_eager_ms"] = time_ms(glue, 20)
+            row["plain_ms"] = time_ms(
+                lambda: K.fused_ensemble_mlp_head_plain(xs, cached.stack, perm, *bounds, noise), 5)
+            flops = 2.0 * rows * macs_per_row(cached.stack.dims)
+            nbytes = stack_bytes(cached.stack) + 4.0 * rows * (din + cached.stack.dims[-1])
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes, False)
+        results[name] = row
+    print("K3 with the Gaussian head (two-tile route): " + json.dumps(results), flush=True)
+    return results
+
+
+# --------------------------------------------------------------------------- #
 # Config PN: PlaNet at dynamics_model/planet.yaml's full width
 # --------------------------------------------------------------------------- #
 # the cuts: two episodes (the first a test episode, the second with
@@ -3344,6 +3441,8 @@ def main(argv=None) -> int:
                              "(5,000) instead of the default phases")
     parser.add_argument("--policy", action="store_true",
                         help="after the build, check and time the SAC policy kernel alone")
+    parser.add_argument("--k3-head", action="store_true",
+                        help="after the build, check and time K3 with the Gaussian head alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a CUDA device",
@@ -3359,13 +3458,15 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({build.library_path().name}"
           f"{', already built' if cached else ''})", flush=True)
-    if args.published_e or args.published_m or args.policy:
+    if args.published_e or args.published_m or args.policy or args.k3_head:
         if args.published_e:
             published_config_e()
         elif args.published_m:
             published_config_m()
-        else:
+        elif args.policy:
             policy_kernel_checks()
+        else:
+            k3_head_checks()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -3389,6 +3490,7 @@ def default_phases(t0: float, build_s: float, cleanup) -> int:
     results.update(wide_kernel_checks())
     results.update(mbpo_kernel_checks())
     policy_kernel_checks()
+    k3_head_checks()
 
     agree = {name: agreement(name, pop=40) for name in ("A", "B", "D")}
     print("agreement card vs cpu (identical members): " + json.dumps(agree), flush=True)

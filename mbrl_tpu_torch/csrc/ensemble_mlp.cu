@@ -47,6 +47,13 @@
 //   (3xTF32). Two f32 tiles fit only so: their hi and lo copies in shared
 //   memory would take 204.8 of the 227 KB at 200 wide. The epilogue is the
 //   warp's own: its rows are its wgmma rows, so only __syncwarp orders it.
+//   Entered through mbrl_ensemble_mlp_head, the route works in the batch's
+//   order: slot p of member e loads batch row perm[e * S + p] (the TS1
+//   permutation, two indices a thread a tile), and the last epilogue
+//   finishes the Gaussian head (the bias, the soft-bounded log-variance, the
+//   reparameterised draw on noise drawn beforehand) and writes each result
+//   to its row's place in the batch (pair_gaussian_head). The model step
+//   then launches no gather, scatter or element-wise pass around K3.
 // - A cluster a member (K3_CLUSTER), at a few rows a member (kernels.py:
 //   CLUSTER_ROWS; the entry takes up to 64): one row per elite ran five
 //   blocks on 132 SMs, each streaming its member's whole stack through one
@@ -70,6 +77,7 @@
 
 #include <type_traits>
 
+#include "gaussian_head.cuh"
 #include "tc_chain.cuh"
 #include "wgmma_rs.cuh"
 
@@ -238,6 +246,91 @@ __device__ __forceinline__ void pair_skip(const ChainDesc& d, uint32_t bars, int
   }
 }
 
+// What the two-tile route reads through and finishes (mbrl_ensemble_mlp_head);
+// all zero for the raw head (mbrl_ensemble_mlp).
+struct PairHead {
+  const long long* perm;  // slot e * S + p reads, and writes, batch row perm[e * S + p]; null: the slot
+  const float* max_lv;    // (out) the log-variance's soft bounds
+  const float* min_lv;
+  const float* noise;     // (B, out) N(0, 1) in batch order, or null
+  float* lv_out;          // (B, out): the bounded log-variance when noise is null
+  int out;                // the head's out columns; 0: the raw head, (E, S, head_out) by slot
+  unsigned div;           // ceil(2^20 / out): i / out = (i * div) >> 20 for every i < 16 * out
+};
+
+// Float i of the row-major staging of a warp's 16 rows of the head: the
+// warp's own 512 bytes of each k-step of its warpgroup's A region
+// (pair_slot), which no other warp reads or writes.
+__device__ __forceinline__ float* pair_staged(unsigned char* a, int warp, int i) {
+  return reinterpret_cast<float*>(a + ((i >> 7) * 4 + warp) * (PAIR_SLOT_BYTES / 4)) + (i & 127);
+}
+
+// The Gaussian head of this warp's 16 rows, finished in the last product's
+// epilogue. The raw head (accumulators plus bias) is staged, 8 x n8 columns
+// a row, in the warp's slots of the A region, free once the last product is
+// done (the warp's rows are its wgmma rows); then read a column a lane, row
+// by row, so that the noise is read and each row written at its place in
+// the batch with coalesced accesses: lane l holds the batch row of the
+// warp's row l, two elements a lane a pass, their noise loaded before either
+// is computed. No branch depends on the lane (a lane past the last element
+// repeats it, writing the same value to the same place), and `warp` comes
+// through a shuffle: a path ptxas takes for divergent in the loop around the
+// products made it serialize every wgmma of the kernel (C7520).
+// PyTorch's arithmetic op for op, in f32 (GaussianMLP's _bound:
+// kernels.bound_logvar, logaddexp's CUDA formula; sample_1d's draw), each of
+// its roundings its own (__fmul_rn, __fadd_rn: nothing contracted into an
+// FMA that PyTorch does not make).
+__device__ __forceinline__ void pair_gaussian_head(const float* acc, const float* bias, int n8,
+                                                   int dh, const PairHead& hd, unsigned char* a,
+                                                   int warp, int lane, size_t slot0, int rows,
+                                                   float* out) {
+  const int g = lane >> 2, c0 = 2 * (lane & 3), ns = 8 * n8;
+#pragma unroll
+  for (int j = 0; j < ACC_REGS / 2; ++j) {
+    if (j < n8) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int rr = g + 8 * (u >> 1), cc = c0 + 8 * j + (u & 1);
+        *pair_staged(a, warp, rr * ns + cc) = acc[4 * j + u] + (cc < dh ? bias[cc] : 0.0f);
+      }
+    }
+  }
+  __syncwarp();
+  const int o = hd.out, r0 = 16 * warp, nr = min(16, rows - r0);
+  if (nr > 0) {
+    const size_t slot = slot0 + r0 + min(lane, nr - 1);
+    const long long mine = hd.perm ? __ldg(hd.perm + slot) : (long long)slot;
+    const int n = nr * o;
+    for (int base = 0; base < n; base += 64) {
+      int i[2], c[2];
+      long long at[2];
+      float z[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const unsigned idx = min(base + 32 * k + lane, n - 1);
+        const int rr = (idx * hd.div) >> 20;
+        c[k] = idx - rr * o;
+        i[k] = rr * ns + c[k];
+        at[k] = __shfl_sync(0xffffffffu, mine, rr) * o + c[k];
+        z[k] = hd.noise ? __ldg(hd.noise + at[k]) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float mean = *pair_staged(a, warp, i[k]);
+        const float lv = bound_logvar(*pair_staged(a, warp, i[k] + o), __ldg(hd.max_lv + c[k]),
+                                      __ldg(hd.min_lv + c[k]));
+        if (hd.noise) {
+          out[at[k]] = __fadd_rn(mean, __fmul_rn(expf(__fmul_rn(0.5f, lv)), z[k]));
+        } else {
+          out[at[k]] = mean;
+          hd.lv_out[at[k]] = lv;
+        }
+      }
+    }
+  }
+  __syncwarp();  // every lane has read the staging before the next tile's A goes there
+}
+
 // grid = (blocks,), TC_CHAIN_THREADS threads: pairs (member, tiles 2p and 2p
 // + 1) of the member-major list, block b taking b, b + blocks, ...;
 // `member_pairs` = ceil(num_tiles / 2), `total` = E * member_pairs. Compiled
@@ -248,7 +341,8 @@ template <bool BF16>
 __global__ void __launch_bounds__(TC_CHAIN_THREADS, 1)
 ensemble_mlp_pair_kernel(const float* __restrict__ x, const unsigned char* __restrict__ ws,
                          const float* __restrict__ bs, float* __restrict__ out, const ChainDesc d,
-                         int S, int num_tiles, int member_pairs, int total, int act) {
+                         int S, int num_tiles, int member_pairs, int total, int act,
+                         const PairHead hd) {
   extern __shared__ __align__(128) unsigned char smem[];
   TC_STAMP(0)
   if (threadIdx.x == 0) {
@@ -273,7 +367,10 @@ ensemble_mlp_pair_kernel(const float* __restrict__ x, const unsigned char* __res
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
     const uint32_t bars = smem_u32(smem);
-    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    // the warp index through a shuffle: ptxas then sees the head's loop
+    // bounds (rows past the warp's first) as warp-uniform; taken from
+    // threadIdx, its divergent path serialized every wgmma (C7520)
+    const int warp = __shfl_sync(0xffffffffu, (threadIdx.x >> 5) & 3, 0), lane = threadIdx.x & 31;
     const int din = d.dims[0], dh = d.dims[d.num_products];
     unsigned char* a = smem + TC_BARRIER_BYTES + wg * d.a_copy_bytes;
     float* bias = reinterpret_cast<float*>(smem + d.extra_off + wg * pair_bias_bytes(d));
@@ -289,8 +386,17 @@ ensemble_mlp_pair_kernel(const float* __restrict__ x, const unsigned char* __res
       const int row0 = tile * TC_ROWS, rows = min(TC_ROWS, S - row0);
       const int r = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
       // the input tile as the first product's A, zero past the ragged last
-      // tile's rows and past `in`: rows r and r + 8 of this thread's lanes
-      const float* xe = x + ((size_t)e * S + row0) * din;
+      // tile's rows and past `in`: rows r and r + 8 of this thread's lanes,
+      // each the batch row its slot reads (through perm, once a tile)
+      const size_t slot0 = (size_t)e * S + row0;
+      const float* xr[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const size_t slot = slot0 + r + 8 * u;
+        const long long row =
+            r + 8 * u >= rows ? 0 : hd.perm ? __ldg(hd.perm + slot) : (long long)slot;
+        xr[u] = x + (size_t)row * din;
+      }
       // the member's biases into this warpgroup's copy, once its last tile
       // has read them
       asm volatile("bar.sync %0, %1;" ::"r"(PAIR_WG_BARRIER + wg), "n"(128) : "memory");
@@ -304,7 +410,7 @@ ensemble_mlp_pair_kernel(const float* __restrict__ x, const unsigned char* __res
 #pragma unroll
           for (int u = 0; u < 4; ++u) {  // (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1)
             const int rr = r + 8 * (u >> 1), cc = c + (u & 1);
-            v[4 * h + u] = rr < rows && cc < din ? __ldg(xe + (size_t)rr * din + cc) : 0.0f;
+            v[4 * h + u] = rr < rows && cc < din ? __ldg(xr[u >> 1] + cc) : 0.0f;
           }
         }
         pair_store<BF16>(a, q, warp, lane, v);
@@ -320,8 +426,10 @@ ensemble_mlp_pair_kernel(const float* __restrict__ x, const unsigned char* __res
         if (i + 1 < d.num_products) {
           pair_epilogue<BF16>(act, acc, bias + d.b_off[i], n8, dout, a, warp, lane);
           __syncwarp();
+        } else if (hd.out) {
+          pair_gaussian_head(acc, bias + d.b_off[i], n8, dh, hd, a, warp, lane, slot0, rows, out);
         } else {  // the raw head, straight out: rows r and r + 8, columns c and c + 1
-          float* o = out + ((size_t)e * S + row0) * dh;
+          float* o = out + slot0 * dh;
           const float* b = bias + d.b_off[i];
 #pragma unroll
           for (int j = 0; j < ACC_REGS / 2; ++j) {
@@ -559,6 +667,37 @@ static bool make_plain_desc(const int* dims, int num_products, int cluster, Plai
     ensemble_mlp_pair_kernel<BF16><<<grid, TC_CHAIN_THREADS, smem, stream>>>(__VA_ARGS__);  \
   }
 
+// The two-tile route's launch (K3_PAIR): its plan, its grid's checks, the
+// kernel; `hd` all zero for the raw head.
+static cudaError_t launch_pair(int bf16, const int* dims, int num_products, int num_members,
+                               int rows, int blocks, int act, const float* x,
+                               const unsigned char* wt, const float* bs, float* out,
+                               const PairHead& hd, cudaStream_t s) {
+  ChainDesc d;
+  size_t smem;
+  const bool ok = bf16 ? make_pair_desc<true>(dims, num_products, &d, &smem)
+                       : make_pair_desc<false>(dims, num_products, &d, &smem);
+  const int num_tiles = (rows + TC_ROWS - 1) / TC_ROWS;
+  const int member_pairs = (num_tiles + 1) / 2;
+  const long long total = (long long)member_pairs * num_members;
+  if (!ok || blocks < 1 || blocks > total || total > INT_MAX) return cudaErrorInvalidValue;
+  if (act < ACT_RELU || act > ACT_LEAKY_RELU) return cudaErrorInvalidValue;
+  // a Gaussian head of 2 x out columns, staged as (64, padded head) f32 in
+  // one warpgroup's A region (pair_gaussian_head)
+  if (hd.out && (2 * hd.out != dims[num_products] ||
+                 TC_ROWS * 4 * d.np[num_products - 1] > d.a_copy_bytes))
+    return cudaErrorInvalidValue;
+  const dim3 grid(blocks);
+  if (bf16) {
+    LAUNCH_K3_PAIR(true, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, member_pairs,
+                   (int)total, act, hd)
+  } else {
+    LAUNCH_K3_PAIR(false, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, member_pairs,
+                   (int)total, act, hd)
+  }
+  return cudaSuccess;
+}
+
 #define LAUNCH_K3_CLUSTER(ACT, BF16, cfg, ...)                                                \
   {                                                                                           \
     cudaError_t err = prepare_once<ensemble_mlp_cluster_kernel<ACT, BF16>>();                 \
@@ -591,20 +730,9 @@ int mbrl_ensemble_mlp(const float* x, const void* tiles, const float* bs, float*
     const dim3 grid(blocks);
     DISPATCH(act, bf16, LAUNCH_K3, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, (int)total)
   } else if (route == K3_PAIR) {
-    const bool ok = bf16 ? make_pair_desc<true>(dims, num_products, &d, &smem)
-                         : make_pair_desc<false>(dims, num_products, &d, &smem);
-    const int member_pairs = (num_tiles + 1) / 2;
-    const long long total = (long long)member_pairs * num_members;
-    if (!ok || blocks < 1 || blocks > total || total > INT_MAX) return cudaErrorInvalidValue;
-    const dim3 grid(blocks);
-    if (act < ACT_RELU || act > ACT_LEAKY_RELU) return cudaErrorInvalidValue;
-    if (bf16) {
-      LAUNCH_K3_PAIR(true, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, member_pairs,
-                     (int)total, act)
-    } else {
-      LAUNCH_K3_PAIR(false, grid, smem, s, x, wt, bs, out, d, rows, num_tiles, member_pairs,
-                     (int)total, act)
-    }
+    const cudaError_t err = launch_pair(bf16, dims, num_products, num_members, rows, blocks, act,
+                                        x, wt, bs, out, PairHead{}, s);
+    if (err != cudaSuccess) return err;
   } else if (route == K3_CLUSTER) {
     PlainDesc pd;
     if (blocks % num_members != 0 ||
@@ -627,6 +755,32 @@ int mbrl_ensemble_mlp(const float* x, const void* tiles, const float* bs, float*
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// K3's two-tile route with the Gaussian head finished in its epilogue, in the
+// batch's order: x is the (B = num_members x rows, in) batch, slot p of
+// member e reads batch row perm[e * rows + p] and its results go to that row.
+// With `noise` (B, out): out = mean + exp(logvar / 2) * noise; without, out
+// the mean and lv_out the bounded log-variance; each (B, out). Grid, tiles and
+// checks as mbrl_ensemble_mlp's K3_PAIR (kernels.k3_fuses_head picks it).
+int mbrl_ensemble_mlp_head(const float* x, const void* tiles, const float* bs,
+                           const long long* perm, const float* max_lv, const float* min_lv,
+                           const float* noise, float* out, float* lv_out, const int* dims,
+                           int num_products, int num_members, int rows, int blocks, int act,
+                           int bf16, long long tile_elems, int out_size, void* stream) {
+  ChainDesc d;
+  size_t smem;
+  if (!make_chain_desc(bf16, dims, num_products, 0, &d, &smem) || rows < 1 ||
+      num_members < 1 || d.w_member != tile_elems || out_size < 1 || !perm || !max_lv ||
+      !min_lv || !(noise || lv_out))
+    return cudaErrorInvalidValue;
+  const PairHead hd{perm, max_lv, min_lv, noise, lv_out, out_size,
+                    ((1u << 20) + out_size - 1) / out_size};
+  const cudaError_t err =
+      launch_pair(bf16, dims, num_products, num_members, rows, blocks, act, x,
+                  static_cast<const unsigned char*>(tiles), bs, out, hd,
+                  static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // extern "C"

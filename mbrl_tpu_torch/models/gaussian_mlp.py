@@ -290,11 +290,16 @@ class GaussianMLP:
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Equal-shard propagation: permute the batch, give each elite member an
         equal contiguous shard, forward, un-permute. Requires
-        B % num_elites == 0. The forward is kernel K3."""
+        B % num_elites == 0. The forward is kernel K3; where it can
+        (:meth:`_fuses_head`), K3 itself reads the rows through ``perm`` and
+        writes the bounded head in the batch's order."""
         cached = self.packed(params)
         p = cached.view
         num_used = p["head"]["w"].shape[0]
         batch = x.shape[0]
+        if self._fuses_head(cached, x, num_used):
+            return self._forward_fused(cached, x, perm, num_used, None)
+        kernels.HEAD_COUNTS["_forward_sharded.glue"] += 1
         h = self._permute_rows(x, perm, num_used)
         raw = kernels.fused_ensemble_mlp(h, cached.stack, tiles=cached.tiles)
         mean, logvar = self._bound(p, raw)
@@ -302,6 +307,57 @@ class GaussianMLP:
         if logvar is not None:
             logvar = logvar.reshape(batch, -1)
         return self._unpermute_rows(mean, logvar, perm, inv)
+
+    def _sharded_draw(
+        self,
+        params: Params,
+        x: torch.Tensor,
+        perm: torch.Tensor,
+        inv: Optional[torch.Tensor],
+        draw_from: Optional[torch.Generator],
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """:meth:`_forward_sharded`, then :meth:`_draw`; where K3 finishes
+        the head, it draws too, on normals drawn from ``draw_from`` before its
+        launch (the same normals: nothing else draws in between)."""
+        if draw_from is not None:
+            cached = self.packed(params)
+            num_used = cached.view["head"]["w"].shape[0]
+            if self._fuses_head(cached, x, num_used):
+                return self._forward_fused(cached, x, perm, num_used, draw_from)
+        return self._draw(*self._forward_sharded(params, x, perm, inv), draw_from)
+
+    def _forward_fused(
+        self, cached: _Packed, x: torch.Tensor, perm: torch.Tensor, num_used: int,
+        draw_from: Optional[torch.Generator],
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """K3 in the batch's order with the Gaussian head finished: ``(mean,
+        logvar)``, or with ``draw_from`` the draw ``(mean + exp(logvar / 2) *
+        N(0, 1), None)``, its normals drawn outside K3's span."""
+        batch = x.shape[0]
+        noise = None if draw_from is None else randn(draw_from, (batch, self.out_size), x.device)
+        return kernels.fused_ensemble_mlp(
+            x.reshape(num_used, batch // num_used, x.shape[-1]), cached.stack, tiles=cached.tiles,
+            perm=perm, logvar_bounds=(cached.view["max_logvar"], cached.view["min_logvar"]),
+            noise=noise)
+
+    def _fuses_head(self, cached: _Packed, x: torch.Tensor, num_used: int) -> bool:
+        """Whether K3 finishes this step's Gaussian head (:func:`kernels.k3_fuses_head`)."""
+        if cached.tiles is None or not kernels.on_card(x):
+            return False
+        return kernels.k3_fuses_head(cached.tiles.layout, x.shape[0] // num_used, num_used,
+                                     kernels.sm_count(x.device), not self.deterministic)
+
+    @staticmethod
+    def _draw(
+        mean: torch.Tensor, logvar: Optional[torch.Tensor], generator: Optional[torch.Generator]
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(mean + exp(logvar / 2) * N(0, 1), None)`` with the normals drawn
+        from ``generator``; ``(mean, logvar)`` unchanged without one, or
+        without a logvar."""
+        if generator is None or logvar is None:
+            return mean, logvar
+        std = torch.exp(0.5 * logvar)
+        return mean + std * randn(generator, mean.shape, mean.device), None
 
     @profiling.span("GaussianMLP._permute_rows")
     def _permute_rows(self, x: torch.Tensor, perm: torch.Tensor, num_used: int) -> torch.Tensor:
@@ -401,25 +457,29 @@ class GaussianMLP:
         propagation_indices: Optional[torch.Tensor] = None,
         precomputed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         sharding=None,
+        draw_from: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Rollout-time forward that collapses the ensemble axis per the
         propagation method (over elite members). ``x`` is (B, in); returns
         (B, out) mean/logvar. ``sharding`` (a ``parallel.mesh.Sharding`` of
         the rows over a data axis that divides B): the ranks split the work
-        and each returns the whole batch's values (:meth:`_forward_split`)."""
+        and each returns the whole batch's values (:meth:`_forward_split`).
+        ``draw_from``: return the reparameterised draw ``(mean + exp(logvar /
+        2) * N(0, 1), None)`` instead, the normals drawn from it after the
+        propagation's own draws."""
         method = self.propagation_method
         if method is None or self.ensemble_size == 1:
             mean, logvar = self.forward(params, x)
             if self.ensemble_size == 1:
-                return mean[0], None if logvar is None else logvar[0]
-            return mean, logvar
+                mean, logvar = mean[0], None if logvar is None else logvar[0]
+            return self._draw(mean, logvar, draw_from)
         if sharding is not None:
             if method == "random_model" and precomputed is None and generator is None:
                 raise ValueError("random_model propagation requires a generator")
             if method == "fixed_model" and propagation_indices is None:
                 raise ValueError("fixed_model propagation requires propagation_indices")
-            return self._forward_split(params, x, sharding, generator, propagation_indices,
-                                       precomputed)
+            return self._draw(*self._forward_split(params, x, sharding, generator,
+                                                   propagation_indices, precomputed), draw_from)
 
         num_used = int(params["elite"].shape[0])
         batch = x.shape[0]
@@ -427,23 +487,24 @@ class GaussianMLP:
 
         if method == "random_model":
             if precomputed is not None:
-                return self._forward_sharded(params, x, *precomputed)
+                return self._sharded_draw(params, x, *precomputed, draw_from)
             if generator is None:
                 raise ValueError("random_model propagation requires a generator")
             if shardable:
                 perm = randperm(generator, batch, x.device)
-                return self._forward_sharded(params, x, perm)
+                return self._sharded_draw(params, x, perm, None, draw_from)
             idx = randint(generator, 0, num_used, (batch,), x.device)
         elif method == "fixed_model":
             if propagation_indices is None:
                 raise ValueError("fixed_model propagation requires propagation_indices")
             if shardable:
                 # persistent permutation => persistent member assignment (TSinf)
-                return self._forward_sharded(params, x, propagation_indices)
+                return self._sharded_draw(params, x, propagation_indices, None, draw_from)
             idx = propagation_indices % num_used
         elif method == "expectation":
             mean, logvar = self.forward(params, x, use_only_elite=True)
-            return mean.mean(dim=0), None if logvar is None else logvar.mean(dim=0)
+            return self._draw(mean.mean(dim=0), None if logvar is None else logvar.mean(dim=0),
+                              draw_from)
         else:
             raise ValueError(f"Invalid propagation method {method}.")
 
@@ -451,7 +512,7 @@ class GaussianMLP:
         gather = idx.reshape(1, -1, 1).expand(1, batch, mean.shape[-1])
         m = torch.gather(mean, 0, gather)[0]
         lv = None if logvar is None else torch.gather(logvar, 0, gather)[0]
-        return m, lv
+        return self._draw(m, lv, draw_from)
 
     # ------------------------------------------------------------------ #
     # Losses
@@ -547,15 +608,13 @@ class GaussianMLP:
             t = min(model_state["rollout_t"], model_state["rollout_perms"].shape[0] - 1)
             precomputed = (model_state["rollout_perms"][t], model_state["rollout_invs"][t])
             model_state = {**model_state, "rollout_t": model_state["rollout_t"] + 1}
-        mean, logvar = self.forward_propagated(
+        pred, _ = self.forward_propagated(
             params,
             model_input,
             generator=generator,
             propagation_indices=model_state["propagation_indices"],
             precomputed=precomputed,
             sharding=model_state.get("sharding"),
+            draw_from=None if deterministic or self.deterministic else generator,
         )
-        if deterministic or self.deterministic or logvar is None:
-            return mean, model_state
-        std = torch.exp(0.5 * logvar)
-        return mean + std * randn(generator, mean.shape, mean.device), model_state
+        return pred, model_state

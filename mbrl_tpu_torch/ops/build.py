@@ -109,6 +109,11 @@ SIGNATURES = {
     # K3 on the chain: ..., pack_chain's elements a member, the stack's plain
     # weights (its cluster route reads them), the route (kernels.K3_ROUTES)
     "mbrl_ensemble_mlp": [_P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _LL, _P, _I, _P],
+    # K3's two-tile route with the Gaussian head: x, tiles, biases, perm, the
+    # logvar bounds, noise (or null), out, logvar out (or null), dims,
+    # products, members, rows a member, grid, activation, bf16, pack_chain's
+    # elements a member, out columns
+    "mbrl_ensemble_mlp_head": [_P] * 9 + [_DIMS] + [_I] * 6 + [_LL, _I, _P],
     "mbrl_ensemble_mlp_gaussian": [
         _U, _U, _P, _P, _P, _P, _P, _P, _DIMS, _I, _I, _I, _I, _I, _I, _I, _LL, _P,
     ],

@@ -9,7 +9,9 @@ products on the tensor cores (``wgmma``) through one member-chain routine
 ====  ==========================  ==========================================
 K1    :func:`fused_rollout_returns`       whole H-step rollout, one launch
 K2    :func:`fused_ensemble_mlp_gaussian` one step: chain + bounded Gaussian sample
-K3    :func:`fused_ensemble_mlp`          equal-shard forward, raw head
+K3    :func:`fused_ensemble_mlp`          equal-shard forward, raw head (past one
+                                          wave also: rows through the TS1
+                                          permutation, the Gaussian head finished)
 ====  ==========================  ==========================================
 
 Dispatch depends only on where the tensors live: a CPU tensor goes through the
@@ -287,6 +289,13 @@ class ChainLayout:
         does not fit."""
         free = TC_SMEM_BYTES - 128 - 2 * self.pair_a_bytes - 2 * self.pair_bias_bytes
         return min(PAIR_MAX_STAGES, free // self.stage_bytes)
+
+    @functools.cached_property
+    def pair_head_fits(self) -> bool:
+        """Whether K3's two-tile route can finish a Gaussian head: its
+        (64, padded head) f32 tile staged in one warpgroup's A region (mirrors
+        ``launch_pair``'s check in ``csrc/ensemble_mlp.cu``)."""
+        return MAX_TILE * 4 * self.n_pad[-1] <= self.pair_a_bytes
 
     @functools.cached_property
     def pair_smem_bytes(self) -> int:
@@ -612,6 +621,21 @@ def k3_blocks(route: str, rows_per_member: int, num_members: int, num_sms: int) 
     return persistent_blocks(rows_per_member, num_members, num_sms)
 
 
+def k3_fuses_head(layout: ChainLayout, rows_per_member: int, num_members: int,
+                  num_sms: Optional[int], gaussian: bool) -> bool:
+    """Whether K3 takes the rows of a TS1 step through its permutation and
+    finishes the Gaussian head in its epilogue (:func:`fused_ensemble_mlp`'s
+    ``perm``, ``logvar_bounds``, ``noise``): for a ``gaussian`` head, on the
+    card (``num_sms``; None off it), for a stack the chain takes (``layout``,
+    the packed tiles' layout) on its two-tile route (:func:`k3_route`: more
+    (member, tile) pairs than one wave), with room to stage the head
+    (``ChainLayout.pair_head_fits``). Any other call keeps the raw head and
+    PyTorch's gather, bound, scatter and draw around it."""
+    return (gaussian and num_sms is not None and not isinstance(layout, WideTileLayout)
+            and k3_route(rows_per_member, num_members, num_sms, layout.low_precision) == "pair"
+            and layout.pair_head_fits)
+
+
 def wide_grid(num_tiles: int, cluster: int) -> int:
     """The wide route's blocks along x for ``num_tiles`` row tiles (K2's of a
     member, K1's of the batch): padded to a multiple of ``cluster``; a
@@ -792,6 +816,35 @@ def fused_ensemble_mlp_plain(x: torch.Tensor, stack: MLPStack) -> torch.Tensor:
     return _plain_chain(x, stack)
 
 
+def fused_ensemble_mlp_head_plain(
+    x: torch.Tensor,
+    stack: MLPStack,
+    perm: torch.Tensor,
+    max_logvar: torch.Tensor,
+    min_logvar: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`fused_ensemble_mlp` with the Gaussian head, plain: the batch
+    ``x`` (E, S, in) gathered by ``perm`` into each member's shard, the
+    chain, the bounded log-variance, both put back in the batch's order, then
+    the draw ``mean + exp(logvar / 2) * noise`` when ``noise`` (B, out) is
+    given. The same operations on the same layouts as ``GaussianMLP``'s
+    ``_permute_rows``, ``_bound``, ``_unpermute_rows`` and ``sample_1d``, so
+    bit-equal to them; the kernel draws before it writes, which is the same
+    arithmetic row by row."""
+    e, rows, din = x.shape
+    batch = e * rows
+    raw = _plain_chain(x.reshape(batch, din)[perm].reshape(e, rows, din), stack)
+    out_size = raw.shape[-1] // 2
+    mean = raw[..., :out_size].reshape(batch, -1)
+    logvar = bound_logvar(raw[..., out_size:], max_logvar, min_logvar).reshape(batch, -1)
+    mean_b, logvar_b = torch.empty_like(mean), torch.empty_like(logvar)
+    mean_b[perm], logvar_b[perm] = mean, logvar
+    if noise is None:
+        return mean_b, logvar_b
+    return mean_b + torch.exp(0.5 * logvar_b) * noise, None
+
+
 def fused_ensemble_mlp_gaussian_plain(
     generator: torch.Generator,
     x: torch.Tensor,
@@ -968,18 +1021,37 @@ def wide_max_active_clusters(stack: MLPStack, k1: bool, cluster: int, device: to
 
 
 def fused_ensemble_mlp(
-    x: torch.Tensor, stack: MLPStack, tiles: Optional[ChainTiles] = None
-) -> torch.Tensor:
+    x: torch.Tensor,
+    stack: MLPStack,
+    tiles: Optional[ChainTiles] = None,
+    *,
+    perm: Optional[torch.Tensor] = None,
+    logvar_bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    noise: Optional[torch.Tensor] = None,
+):
     """K3: per-member-sharded ensemble forward, raw head. x (E, S, in) →
     (E, S, head_out), any head width (``2 * out`` of a Gaussian model, ``out``
     of a deterministic one). ``tiles`` is ``pack_tiles(stack)`` (the chain's
     or the wide route's), packed here when not given (pack once per rollout
     or model state). On the wide route K3 keeps a tile's activations in
     shared memory where ``WideTileLayout.k3_resident`` holds, else in a
-    scratch in device memory."""
+    scratch in device memory.
+
+    With ``perm`` (B = E * S, int64, a permutation) and ``logvar_bounds``
+    ``(max_logvar, min_logvar)`` (out each), K3 works in the batch's order
+    and finishes the Gaussian head: ``x`` is the batch (B, in) viewed as
+    (E, S, in), slot p of member e takes batch row ``perm[e * S + p]``, and
+    the results come back by batch row, ``(mean, logvar)`` each (B, out), or
+    with ``noise`` (B, out) the draw ``(mean + exp(logvar / 2) * noise, None)``.
+    On the card only the two-tile route does that (:func:`k3_fuses_head`
+    says when); other shapes raise."""
     with annotate("fused_ensemble_mlp"):
+        if (perm is None) != (logvar_bounds is None) or (noise is not None and perm is None):
+            raise ValueError("perm and logvar_bounds come together, and noise only with them")
         if not _dispatch(x):
-            return fused_ensemble_mlp_plain(x, stack)
+            if perm is None:
+                return fused_ensemble_mlp_plain(x, stack)
+            return fused_ensemble_mlp_head_plain(x, stack, perm, *logvar_bounds, noise)
         from mbrl_tpu_torch.ops.build import load_library
 
         e, rows, din = x.shape
@@ -989,9 +1061,11 @@ def fused_ensemble_mlp(
         if e != stack.num_members or din != stack.dims[0] or rows < 1:
             raise ValueError(f"x {tuple(x.shape)} does not match stack dims {stack.dims} (E={stack.num_members})")
         tiles = _check_tiles(stack, tiles, x.device)
-        out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
         lib = load_library()
+        if perm is not None:
+            return _fused_head(lib, x, stack, tiles, perm, logvar_bounds, noise)
         act, low = ACTIVATION_CODES[stack.activation], int(stack.low_precision)
+        out = torch.empty((e, rows, stack.dims[-1]), dtype=torch.float32, device=x.device)
         head = (x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), out.data_ptr(), _dims_arg(stack))
         if not isinstance(tiles.layout, WideTileLayout):
             route = k3_route(rows, e, sm_count(x.device), stack.low_precision)
@@ -1017,6 +1091,41 @@ def fused_ensemble_mlp(
         fused_ensemble_mlp.launches += 1
         fused_ensemble_mlp.route_launches[route] += 1
         return out
+
+
+def _fused_head(lib, x, stack, tiles, perm, logvar_bounds, noise):
+    """:func:`fused_ensemble_mlp`'s launch with the Gaussian head
+    (``mbrl_ensemble_mlp_head``), its arguments checked."""
+    e, rows, _ = x.shape
+    batch, out_size, dev = e * rows, stack.dims[-1] // 2, x.device
+    max_lv, min_lv = (b.reshape(-1) for b in logvar_bounds)
+    if not k3_fuses_head(tiles.layout, rows, e, sm_count(dev), True):
+        raise ValueError(f"K3 finishes the Gaussian head on its two-tile route only: dims "
+                         f"{stack.dims} at {rows} rows a member of {e}")
+    if perm.dtype != torch.int64 or tuple(perm.shape) != (batch,):
+        raise ValueError(f"perm must be int64 of shape ({batch},), got {perm.dtype} {tuple(perm.shape)}")
+    if max_lv.numel() != out_size or min_lv.numel() != out_size:
+        raise ValueError(f"logvar bounds must hold {out_size} values each, for head {stack.dims[-1]}")
+    if noise is not None and tuple(noise.shape) != (batch, out_size):
+        raise ValueError(f"noise must be ({batch}, {out_size}), got {tuple(noise.shape)}")
+    floats = {"max_logvar": max_lv, "min_logvar": min_lv}
+    if noise is not None:
+        floats["noise"] = noise
+    _check_f32(**floats)
+    _check_cuda(dev, perm=perm, **floats)
+    out = torch.empty((batch, out_size), dtype=torch.float32, device=dev)
+    lv = None if noise is not None else torch.empty_like(out)
+    code = lib.mbrl_ensemble_mlp_head(
+        x.data_ptr(), tiles.w.data_ptr(), stack.bs.data_ptr(), perm.data_ptr(), max_lv.data_ptr(),
+        min_lv.data_ptr(), None if noise is None else noise.data_ptr(), out.data_ptr(),
+        None if lv is None else lv.data_ptr(), _dims_arg(stack), stack.num_products, e, rows,
+        k3_blocks("pair", rows, e, sm_count(dev)), ACTIVATION_CODES[stack.activation],
+        int(stack.low_precision), tiles.layout.member_elems, out_size, _stream(dev))
+    _raise_on_error(code, "fused_ensemble_mlp")
+    fused_ensemble_mlp.launches += 1
+    fused_ensemble_mlp.route_launches["pair"] += 1
+    HEAD_COUNTS["fused_ensemble_mlp.fused_head"] += 1
+    return out, lv
 
 
 def fused_ensemble_mlp_gaussian(
@@ -1343,6 +1452,9 @@ KERNEL_WRAPPERS = (fused_rollout_returns, fused_ensemble_mlp_gaussian, fused_ens
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 fused_ensemble_mlp.route_launches = dict.fromkeys(K3_ROUTES + K3_WIDE_ROUTES, 0)
+# K3's launches that finished the Gaussian head, and GaussianMLP._forward_sharded's
+# calls that kept PyTorch's gather, bound, scatter and draw around a raw head
+HEAD_COUNTS = dict.fromkeys(("fused_ensemble_mlp.fused_head", "_forward_sharded.glue"), 0)
 # the policy kernel's launches, its packs, and the policy calls that took
 # the nn.Linear route (GaussianPolicy.forward counts them here)
 POLICY_COUNTERS = ("launches", "repacks", "linear")
@@ -1355,6 +1467,7 @@ def reset_launch_counts() -> None:
         w.launches = 0
     routes = fused_ensemble_mlp.route_launches
     routes.update(dict.fromkeys(routes, 0))
+    HEAD_COUNTS.update(dict.fromkeys(HEAD_COUNTS, 0))
     for c in POLICY_COUNTERS:
         setattr(fused_policy_mlp, c, 0)
 
@@ -1362,12 +1475,16 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     """Each wrapper's launches, K3's by route under
     ``fused_ensemble_mlp.<route>`` (:data:`K3_ROUTES`, :data:`K3_WIDE_ROUTES`),
+    its launches that finished the Gaussian head
+    (``fused_ensemble_mlp.fused_head``) and the ``GaussianMLP._forward_sharded``
+    calls that kept PyTorch's work around a raw head (``_forward_sharded.glue``),
     and the policy kernel's launches (``fused_policy_mlp``), packs
     (``fused_policy_mlp.repacks``) and the policy calls that took the
     ``nn.Linear`` route (``fused_policy_mlp.linear``)."""
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     counts.update({f"fused_ensemble_mlp.{route}": n
                    for route, n in fused_ensemble_mlp.route_launches.items()})
+    counts.update(HEAD_COUNTS)
     counts["fused_policy_mlp"] = fused_policy_mlp.launches
     counts.update({f"fused_policy_mlp.{c}": getattr(fused_policy_mlp, c)
                    for c in POLICY_COUNTERS[1:]})

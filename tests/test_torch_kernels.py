@@ -186,6 +186,7 @@ def test_launch_counters_count_only_kernel_launches():
         "fused_rollout_returns": 0, "fused_ensemble_mlp_gaussian": 0, "fused_ensemble_mlp": 0,
         "fused_ensemble_mlp.tile": 0, "fused_ensemble_mlp.pair": 0,
         "fused_ensemble_mlp.cluster": 0, "fused_ensemble_mlp.scratch": 0,
-        "fused_ensemble_mlp.smem": 0, "fused_policy_mlp": 0, "fused_policy_mlp.repacks": 0,
+        "fused_ensemble_mlp.smem": 0, "fused_ensemble_mlp.fused_head": 0,
+        "_forward_sharded.glue": 0, "fused_policy_mlp": 0, "fused_policy_mlp.repacks": 0,
         "fused_policy_mlp.linear": 0,
     }

@@ -130,6 +130,8 @@ def test_wrappers_reach_the_entry_of_their_route(fake_card, name):
                                   "fused_ensemble_mlp": 1, **{
                                       f"fused_ensemble_mlp.{r}": int(r == k3_route)
                                       for r in tk.K3_ROUTES + tk.K3_WIDE_ROUTES},
+                                  "fused_ensemble_mlp.fused_head": 0,
+                                  "_forward_sharded.glue": 0,
                                   "fused_policy_mlp": 0, "fused_policy_mlp.repacks": 0,
                                   "fused_policy_mlp.linear": 0}
     if wide:  # each scratch holds its grid's blocks: K3 persistent, K2 (tiles, E), K1 tiles

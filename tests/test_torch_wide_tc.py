@@ -328,6 +328,8 @@ def test_the_wide_entries_get_wide_tiles_and_their_scratch(fake_card, name, dt):
                                   "fused_ensemble_mlp": 1, **{
                                       f"fused_ensemble_mlp.{r}": int(r == k3_route)
                                       for r in tk.K3_ROUTES + tk.K3_WIDE_ROUTES},
+                                  "fused_ensemble_mlp.fused_head": 0,
+                                  "_forward_sharded.glue": 0,
                                   "fused_policy_mlp": 0, "fused_policy_mlp.repacks": 0,
                                   "fused_policy_mlp.linear": 0}
 
